@@ -1,0 +1,51 @@
+"""Deterministic synthetic LM corpus, the port of ``repro.data.synthetic``.
+
+Zipf-distributed order-2 Markov chains over the vocabulary, with the same
+transition tables as the JAX corpus (both build them with numpy from
+``seed``). The token stream is NOT the JAX corpus's: that one samples with
+``jax.random``; this one samples with a numpy ``Generator`` seeded from
+(seed, step, host_id). ``batch_at(step)`` is a pure function of its
+arguments.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticCorpus:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    n_states: int = 64          # Markov state count (hashed from last 2 tokens)
+    zipf_a: float = 1.2
+
+    def _tables(self):
+        rng = np.random.default_rng(self.seed)
+        # per-state Zipf-permuted next-token distributions, top-64 truncated
+        ranks = np.arange(1, 65, dtype=np.float64) ** (-self.zipf_a)
+        probs = (ranks / ranks.sum()).astype(np.float32)
+        cand = np.stack([rng.permutation(self.vocab_size)[:64] for _ in range(self.n_states)])
+        return cand.astype(np.int64), probs
+
+    def batch_at(self, step: int, host_id: int = 0, n_hosts: int = 1) -> dict:
+        """Pure function (step → batch) of int64 numpy arrays; rows sliced
+        per host."""
+        rows = self.global_batch // n_hosts
+        cand, probs = self._tables()
+        cum = np.cumsum(probs)
+        rng = np.random.default_rng((self.seed, step, host_id))
+        s1 = rng.integers(0, self.n_states, size=rows)
+        s2 = rng.integers(0, self.n_states, size=rows)
+        u = rng.random((rows, self.seq_len), dtype=np.float32)
+        toks = np.empty((rows, self.seq_len), np.int64)
+        for t in range(self.seq_len):
+            state = (s1 * 31 + s2) % self.n_states
+            idx = np.minimum(np.searchsorted(cum, u[:, t]), 63)   # inverse-CDF Zipf
+            toks[:, t] = cand[state, idx]
+            s1, s2 = s2, toks[:, t] % self.n_states
+        return {"tokens": toks, "labels": toks}

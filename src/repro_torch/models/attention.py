@@ -1,0 +1,156 @@
+"""GQA attention for prefill and single-token KV-cache decode, the port of
+``repro.models.attention``.
+
+GQA is computed with grouped einsums — KV heads are never materialized
+repeated. Softmax in fp32. Above ``cfg.flash_min_len`` every causal
+self-attention sublayer dispatches to the flash kernel
+(``kernel_flash_attention``); the masked path stays as the short-sequence
+implementation and the test oracle. ``banded_attention``,
+``verify_attention`` and the cross-attention paths are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention as kflash
+from repro_torch.models.layers import ACC, dense_init, matmul, rms_norm, rope_apply, rope_freqs
+
+NEG_INF = -1e30
+
+
+def attn_init(gen, cfg, dtype, repeats):
+    """Parameters of ``repeats`` stacked attention sublayers."""
+    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    p = {"wq": dense_init(gen, (repeats, d, h * dh), dtype),
+         "wk": dense_init(gen, (repeats, d, hk * dh), dtype),
+         "wv": dense_init(gen, (repeats, d, hk * dh), dtype),
+         "wo": dense_init(gen, (repeats, h * dh, d), dtype)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((repeats, dh), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.zeros((repeats, dh), dtype=dtype, device=gen.device)
+    return p
+
+
+def _positions(B, L, device):
+    return torch.arange(L, device=device)[None, :].expand(B, L)
+
+
+def _qkv(p, x, x_kv, cfg, positions, kv_positions):
+    B, L, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = matmul(x, p["wq"]).reshape(B, L, h, dh)
+    k = matmul(x_kv, p["wk"]).reshape(B, x_kv.shape[1], hk, dh)
+    v = matmul(x_kv, p["wv"]).reshape(B, x_kv.shape[1], hk, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if positions is not None and cfg.rope_theta > 0:  # NoPE archs skip rotary
+        cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
+        q = rope_apply(q, cos, sin)
+        cos_k, sin_k = rope_freqs(kv_positions, dh, cfg.rope_theta)
+        k = rope_apply(k, cos_k, sin_k)
+    return q, k, v
+
+
+def _gqa_scores(q, k, cfg):
+    """(B,L,H,dh)×(B,S,Hk,dh) → (B,Hk,G,L,S) grouped scores, fp32."""
+    B, L, h, dh = q.shape
+    hk = cfg.n_kv_heads
+    qg = q.reshape(B, L, hk, h // hk, dh)
+    return torch.einsum("blkgd,bskd->bkgls", qg.to(ACC), k.to(ACC)) * (dh**-0.5)
+
+
+def _gqa_out(probs, v, cfg, dtype):
+    B, hk, g, L, S = probs.shape
+    out = torch.einsum("bkgls,bskd->blkgd", probs.to(dtype).to(ACC), v.to(ACC)).to(dtype)
+    return out.reshape(B, L, hk * g * v.shape[-1])
+
+
+def full_attention(p, x, cfg, *, causal=True, window=0, positions=None):
+    """Prefill self-attention with a full masked softmax; window>0 adds a
+    band mask."""
+    B, L, _ = x.shape
+    if positions is None and cfg.rope_theta > 0:
+        positions = _positions(B, L, x.device)
+    q, k, v = _qkv(p, x, x, cfg, positions, positions)
+    scores = _gqa_scores(q, k, cfg)
+    qi = torch.arange(L, device=x.device)[:, None]
+    kj = torch.arange(L, device=x.device)[None, :]
+    mask = torch.zeros((L, L), dtype=torch.bool, device=x.device)
+    if causal:
+        mask |= kj > qi
+    if window:
+        mask |= kj <= qi - window
+    scores = scores.masked_fill(mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v, cfg, x.dtype)
+    return matmul(out, p["wo"])
+
+
+def use_flash(cfg, L: int) -> bool:
+    """Dispatch predicate for the flash path: opt-in via
+    ``cfg.flash_min_len`` and only worth the kernel launch above it."""
+    return cfg.flash_min_len > 0 and L >= cfg.flash_min_len
+
+
+def kernel_flash_attention(p, x, cfg, *, causal=True, window=0, positions=None):
+    """Causal self-attention through the flash kernel (``flash_fwd``): the
+    prefill hot path above ``cfg.flash_min_len``. Sliding windows and GQA
+    are handled in the kernel, any L without padding."""
+    B, L, _ = x.shape
+    if positions is None and cfg.rope_theta > 0:
+        positions = _positions(B, L, x.device)
+    q, k, v = _qkv(p, x, x, cfg, positions, positions)
+    h, dh = cfg.n_heads, cfg.head_dim_
+    o = kflash.flash_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=causal, window=window)
+    out = o.transpose(1, 2).reshape(B, L, h * dh)
+    return matmul(out.to(x.dtype), p["wo"])
+
+
+# ------------------------------------------------------------- decoding ----
+def decode_attention(p, x, cfg, cache, pos, *, window=0, active=None):
+    """One-token decode: x (B,1,D); cache {"k","v"}: (B, S, Hk, dh).
+
+    ``pos (B,)`` is the per-row cache write position. Writes the new K/V at
+    ``pos[b]`` then attends over the first pos[b]+1 entries (masked). For
+    local layers only the last ``window`` positions score.
+
+    The cache is updated IN PLACE (the JAX package returns a new one): a
+    functional copy would move the whole cache every token. The returned
+    dict holds the same tensors. ``active (B,) bool``: rows with False keep
+    their cache bit-identical — where the JAX package drops an
+    out-of-bounds scatter, the port writes each row's old entry back, a
+    masked index write (torch has no ``mode="drop"``)."""
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    positions = pos[:, None]                         # (B, 1)
+    q, k_new, v_new = _qkv(p, x, x, cfg, positions, positions)
+    rows = torch.arange(B, device=x.device)
+    if active is None:
+        cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+    else:
+        live = (active & (pos < S))[:, None, None]
+        wpos = pos.clamp(max=S - 1)
+        for name, new in (("k", k_new), ("v", v_new)):
+            c = cache[name]
+            c[rows, wpos] = torch.where(live, new[:, 0].to(c.dtype), c[rows, wpos])
+    scores = _gqa_scores(q, cache["k"], cfg)         # (B,hk,g,1,S)
+    kj = torch.arange(S, device=x.device)[None, :]
+    invalid = kj > positions                         # (B, S)
+    if window:
+        invalid |= kj <= positions - window
+    scores = scores.masked_fill(invalid[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, cache["v"], cfg, x.dtype)
+    return matmul(out, p["wo"]), cache
+
+
+def init_kv_cache(cfg, batch, seq_len, dtype, device, repeats):
+    """Zero K/V caches for ``repeats`` stacked layers: (R, B, S, Hk, dh)."""
+    shape = (repeats, batch, seq_len, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,142 @@
+"""Stack assembly for prefill / decode, the port of
+``repro.models.transformer``.
+
+Each ``Group(repeats, period)`` of the config's stack program holds its
+parameters stacked over ``repeats`` (leading axis), as the JAX package
+does; where the JAX package runs one ``lax.scan`` over that axis, the port
+runs a Python loop over the layer index. Only the attn and mlp sublayers
+are ported; moe, mamba, rwkv and cross-attention raise.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import Group, ModelConfig, Sub
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import dense_init, mlp_apply, rms_norm, rms_norm_init
+
+
+def _not_ported(kind):
+    return NotImplementedError(f"sublayer kind {kind!r}: not yet ported to repro_torch")
+
+
+# ------------------------------------------------------------------- init --
+def sub_init(gen, sub: Sub, cfg: ModelConfig, dtype, repeats: int):
+    """Parameters of ``repeats`` stacked copies of one sublayer."""
+    p = {"norm": rms_norm_init((repeats, cfg.d_model), dtype, gen.device)}
+    if sub.kind == "attn":
+        p.update(attn.attn_init(gen, cfg, dtype, repeats))
+    elif sub.kind == "mlp":
+        d, f = cfg.d_model, cfg.d_ff
+        if cfg.act == "swiglu":
+            p.update(w_gate=dense_init(gen, (repeats, d, f), dtype),
+                     w_up=dense_init(gen, (repeats, d, f), dtype),
+                     w_down=dense_init(gen, (repeats, f, d), dtype))
+        else:
+            p.update(w_in=dense_init(gen, (repeats, d, f), dtype),
+                     w_out=dense_init(gen, (repeats, f, d), dtype))
+    else:
+        raise _not_ported(sub.kind)
+    return p
+
+
+def group_init(gen, group: Group, cfg: ModelConfig, dtype):
+    return {f"sub{i}": sub_init(gen, s, cfg, dtype, group.repeats)
+            for i, s in enumerate(group.period)}
+
+
+def layer_params(group_params, layer: int) -> dict:
+    """One layer's slice of a group's stacked parameters (views)."""
+    return {key: {name: t[layer] for name, t in sub.items()}
+            for key, sub in group_params.items()}
+
+
+# ---------------------------------------------------------------- forward --
+def sub_apply(p, x, sub: Sub, cfg: ModelConfig, positions=None):
+    """Pre-norm residual sublayer: x + f(rms_norm(x))."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if sub.kind == "attn":
+        if sub.causal and attn.use_flash(cfg, x.shape[1]):
+            out = attn.kernel_flash_attention(p, h, cfg, causal=True, window=sub.window,
+                                              positions=positions)
+        elif sub.causal and (cfg.attention_impl == "flash"
+                             or (sub.window and cfg.attention_impl == "banded")):
+            raise NotImplementedError(
+                f"attention_impl {cfg.attention_impl!r}: not yet ported to repro_torch")
+        else:
+            out = attn.full_attention(p, h, cfg, causal=sub.causal, window=sub.window,
+                                      positions=positions)
+    elif sub.kind == "mlp":
+        out = mlp_apply(p, h, cfg.act)
+    else:
+        raise _not_ported(sub.kind)
+    return x + out
+
+
+def group_apply(params, x, group: Group, cfg: ModelConfig, positions=None):
+    """Full-sequence forward through one group (loop over its layers)."""
+    for layer in range(group.repeats):
+        lp = layer_params(params, layer)
+        for i, s in enumerate(group.period):
+            x = sub_apply(lp[f"sub{i}"], x, s, cfg, positions=positions)
+    return x
+
+
+# ----------------------------------------------------------------- decode --
+def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
+    """One-token step. Returns (x_out, cache or None); attention caches are
+    updated in place (``attention.decode_attention``)."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if sub.kind == "attn":
+        out, nc = attn.decode_attention(p, h, cfg, cache, pos, window=sub.window, active=active)
+    elif sub.kind == "mlp":
+        out, nc = mlp_apply(p, h, cfg.act), None
+    else:
+        raise _not_ported(sub.kind)
+    return x + out, nc
+
+
+def group_decode(params, x, group: Group, cfg: ModelConfig, caches, pos, active=None):
+    """Loop over layers carrying x; each layer's cache slice is written in
+    place, so the returned caches are the ones passed in."""
+    for layer in range(group.repeats):
+        lp = layer_params(params, layer)
+        for i, s in enumerate(group.period):
+            key = f"sub{i}"
+            cache = None
+            if key in caches:
+                cache = {name: t[layer] for name, t in caches[key].items()}
+            x, _ = sub_decode(lp[key], x, s, cfg, cache, pos, active=active)
+    return x, caches
+
+
+def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, device):
+    """Zero caches stacked over repeats. Only caching subs get entries."""
+    caches = {}
+    for i, s in enumerate(group.period):
+        if s.kind == "attn":
+            caches[f"sub{i}"] = attn.init_kv_cache(cfg, batch, cache_len, dtype, device,
+                                                   group.repeats)
+        elif s.kind != "mlp":
+            raise _not_ported(s.kind)
+    return caches
+
+
+# ---------------------------------------------------------------- prefill --
+def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len):
+    """Forward + cache construction: each attention layer's K/V are written
+    into a zeroed cache, then the sublayer runs through ``sub_apply``."""
+    B, L, _ = x.shape
+    caches = group_init_cache(group, cfg, B, cache_len, x.dtype, x.device)
+    positions = attn._positions(B, L, x.device)
+    for layer in range(group.repeats):
+        lp = layer_params(params, layer)
+        for i, s in enumerate(group.period):
+            key = f"sub{i}"
+            p = lp[key]
+            if s.kind == "attn":
+                hn = rms_norm(x, p["norm"], cfg.norm_eps)
+                _, k, v = attn._qkv(p, hn, hn, cfg, positions, positions)
+                caches[key]["k"][layer, :, :L] = k
+                caches[key]["v"][layer, :, :L] = v
+            x = sub_apply(p, x, s, cfg)
+    return x, caches

@@ -1,0 +1,64 @@
+"""Import guard: the port and chip_smoke.py import nothing of JAX, ml_dtypes
+or the JAX package, and the port serves with JAX made unimportable."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+def test_no_forbidden_imports():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
+           for f in files for line, root in _imported_roots(f) if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_serves_with_jax_unimportable():
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+            sys.modules[name] = None          # any import of them now fails
+        import numpy as np, torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch.api import Request, SamplingParams, make_engine
+        from repro_torch.models.model import build_model
+        import dataclasses
+        cfg = dataclasses.replace(get_config("gpt-smoke", smoke=True), flash_min_len=8)
+        model = build_model(cfg)
+        params = model.init(0, device="cpu")
+        toks, _ = model.generate(params, {"tokens": torch.arange(10)[None] % 256}, 4)
+        assert toks.shape == (1, 4)
+        eng = make_engine(model, params, mode="closed", max_batch=2,
+                          sampling=SamplingParams())
+        res, rep = eng.run([Request(tokens=np.arange(9)), Request(tokens=np.arange(3))], 3)
+        assert [r.n_generated for r in res] == [3, 3], res
+        assert not any(m.split(".")[0] in ("jax", "ml_dtypes") for m in sys.modules
+                       if sys.modules[m] is not None)
+        print("PORT_WITHOUT_JAX_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr}"
+    assert "PORT_WITHOUT_JAX_OK" in out.stdout
