@@ -126,3 +126,13 @@ class ModelConfig:
     @property
     def is_encdec(self) -> bool:
         return self.n_enc_layers > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: sequence length, global batch and mode."""
+
+    name: str                 # e.g. train_4k | prefill_32k | decode_32k | custom
+    seq_len: int
+    global_batch: int
+    mode: str                 # "train" | "prefill" | "decode"

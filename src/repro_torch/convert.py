@@ -1,4 +1,4 @@
-"""Parameters of the JAX package → the port's ``ParamTree``.
+"""Parameters and bucketed optimizer state of the JAX package → the port's.
 
 ``params_from_numpy`` takes the JAX parameter tree as nested dicts and
 lists of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``) and
@@ -6,6 +6,10 @@ returns the port's parameters on ``device``. bf16 arrays arrive as
 ml_dtypes ``bfloat16``; they are recognised by their dtype's name and moved
 bit-exactly through a uint16 view, without importing ml_dtypes (the card's
 machine has none).
+
+``bucketed_from_numpy`` takes a JAX ``BucketedParams`` + ``BucketedOptState``
+as numpy buckets and the layout's ``to_json()``, and returns the port's,
+bit-exactly; ``bucketed_to_numpy`` is its inverse (for the tests).
 """
 
 from __future__ import annotations
@@ -13,7 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import ast
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import bucketing
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models.model import ParamTree
 
@@ -41,3 +48,62 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> ParamTree:
         if t.dtype != want:
             raise TypeError(f"{name}: dtype {t.dtype}, config {cfg.name} stores {want}")
     return params
+
+
+def skeleton_from_names(names) -> dict:
+    """The nested dict/list skeleton of a tree from its leaves' ``keystr``
+    paths (``['decoder']['groups'][0]['sub0']['wq']``), in leaf order."""
+    root: dict = {}
+    for name in names:
+        keys = [ast.literal_eval(part) for part in name[1:-1].split("][")]
+        node = root
+        for key, nxt in zip(keys, keys[1:] + [None]):
+            if nxt is None:
+                node[key] = None
+                break
+            child = [] if isinstance(nxt, int) else {}
+            if isinstance(node, list):
+                while len(node) <= key:
+                    node.append(child)
+                node = node[key]
+            else:
+                node = node.setdefault(key, child)
+    return root
+
+
+def bucketed_from_numpy(layout_json: dict, data, m, vhi, vlo=None, delta=None, master=None, *,
+                        step: int = 0, rng=None, device="cuda"):
+    """JAX ``BucketedParams``/``BucketedOptState`` buckets (numpy arrays, one
+    per bucket per role; None for a role the strategy lacks) and the layout's
+    ``to_json()`` → the port's ``(BucketedParams, BucketedOptState)``."""
+    dev = resolve_device(device)
+    skel = skeleton_from_names([slot[0] for slot in layout_json["slots"]])
+    layout = bucketing.BucketLayout.from_json(layout_json, skel)
+    conv = lambda role: None if role is None else tuple(tensor_from_numpy(x, dev) for x in role)
+    params = bucketing.BucketedParams(conv(data), layout)
+    for b, spec in zip(params.data, layout.buckets):
+        if b.shape != (spec.padded,) or bucketing.dtype_name(b.dtype) != spec.dtype:
+            raise ValueError(f"bucket {tuple(b.shape)} {b.dtype} vs layout {spec}")
+    state = bucketing.BucketedOptState(
+        step=int(step), m=conv(m), vhi=conv(vhi), vlo=conv(vlo), delta=conv(delta),
+        master=conv(master), rng=None if rng is None else int(rng) & bucketing.MASK32,
+        layout=layout)
+    return params, state
+
+
+def tensor_to_numpy(t: torch.Tensor, bf16_dtype=np.uint16) -> np.ndarray:
+    """A tensor as numpy; bf16 leaves as a uint16 bit view, viewed as
+    ``bf16_dtype`` (e.g. ml_dtypes' bfloat16, which the caller brings)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).view(bf16_dtype)
+    return t.numpy()
+
+
+def bucketed_to_numpy(bparams, bstate, bf16_dtype=np.uint16) -> dict:
+    """Inverse of ``bucketed_from_numpy``: {"layout", "data", "m", "vhi",
+    "vlo", "delta", "master", "step", "rng"}."""
+    conv = lambda role: None if role is None else [tensor_to_numpy(x, bf16_dtype) for x in role]
+    return {"layout": bparams.layout.to_json(), "data": conv(bparams.data), "m": conv(bstate.m),
+            "vhi": conv(bstate.vhi), "vlo": conv(bstate.vlo), "delta": conv(bstate.delta),
+            "master": conv(bstate.master), "step": bstate.step, "rng": bstate.rng}

@@ -1,0 +1,208 @@
+"""Multi-Component Float (MCF) arithmetic, the port of ``repro.core.mcf``:
+the error-free transformations of Paper §4.1 / Appendix C over length-2
+expansions ``(hi, lo)`` (``hi + lo`` the unevaluated exact sum).
+
+Strict FPU: all arithmetic runs in f32 "registers" and is rounded to
+nearest-even onto the component grid after every operation
+(``rn(x) = x.to(dtype).float()``, bitwise equal to the JAX package's
+``lax.reduce_precision``). Eager PyTorch rounds every op separately and
+never contracts a multiply and an add into an FMA, so these functions are
+bit-identical to the JAX ones; ``torch.compile`` must not be put over them
+(a fused FMA erases the roundoff the transformations keep).
+
+``stochastic_round`` (threefry noise, tree-layout SR) is not ported: the
+bucketed engine's SR uses the counter-based stream of ``core.bucketing``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+F32 = torch.float32
+
+# significand bits (incl. hidden bit) and minimum normal exponent
+_SIG_BITS = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
+_EMIN = {torch.bfloat16: -126, torch.float16: -14, torch.float32: -126}
+
+
+class StrictFPU:
+    """Correctly-rounded low-precision FPU emulated in f32 registers. Values
+    are f32 tensors lying exactly on the target grid; ``load``/``store``
+    convert to and from the storage dtype (both exact)."""
+
+    def __init__(self, dtype):
+        if dtype not in _SIG_BITS:
+            raise TypeError(f"StrictFPU: unsupported component dtype {dtype}")
+        self.dtype = dtype
+
+    def rn(self, x32):
+        """Round-to-nearest-even onto the target grid (stays f32)."""
+        return x32.to(self.dtype).to(F32)
+
+    def load(self, x):
+        return x.to(F32)
+
+    def store(self, x32):
+        return x32.to(self.dtype)          # exact: x32 is on-grid
+
+    def cast(self, x32):
+        return self.rn(x32)
+
+    def add(self, a, b):
+        return self.rn(a + b)
+
+    def sub(self, a, b):
+        return self.rn(a - b)
+
+    def mul(self, a, b):
+        return self.rn(a * b)
+
+    def div(self, a, b):
+        return self.rn(a / b)
+
+
+def fpu(dtype) -> StrictFPU:
+    return StrictFPU(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Expansion:
+    """Length-2 MCF expansion: unevaluated sum ``hi + lo`` (Def. 2.1)."""
+
+    hi: torch.Tensor
+    lo: torch.Tensor
+
+    @property
+    def dtype(self):
+        return self.hi.dtype
+
+    @property
+    def shape(self):
+        return self.hi.shape
+
+    def value(self, dtype=F32):
+        """Evaluate the expansion in a wider dtype."""
+        return self.hi.to(dtype) + self.lo.to(dtype)
+
+
+def zeros_like_expansion(x) -> Expansion:
+    return Expansion(x, torch.zeros_like(x))
+
+
+def fast2sum(a, b):
+    """Dekker's Fast2Sum (Thm 4.1), |a| ≥ |b|: x = RN(a+b), x + y == a + b."""
+    f = fpu(a.dtype)
+    a32, b32 = f.load(a), f.load(b)
+    x = f.add(a32, b32)
+    y = f.sub(b32, f.sub(x, a32))
+    return f.store(x), f.store(y)
+
+
+def two_sum(a, b):
+    """Knuth's TwoSum (App. C Alg. 2): branch-free, no magnitude condition."""
+    f = fpu(a.dtype)
+    a32, b32 = f.load(a), f.load(b)
+    x = f.add(a32, b32)
+    b_virtual = f.sub(x, a32)
+    a_virtual = f.sub(x, b_virtual)
+    b_roundoff = f.sub(b32, b_virtual)
+    a_roundoff = f.sub(a32, a_virtual)
+    y = f.add(a_roundoff, b_roundoff)
+    return f.store(x), f.store(y)
+
+
+def split(a):
+    """Dekker/Veltkamp Split (App. C Alg. 3)."""
+    f = fpu(a.dtype)
+    p = _SIG_BITS[f.dtype]
+    c = p - (p // 2)
+    a32 = f.load(a)
+    t = f.mul(torch.tensor(2.0**c + 1.0, dtype=F32), a32)
+    a_hi = f.sub(t, f.sub(t, a32))
+    a_lo = f.sub(a32, a_hi)
+    return f.store(a_hi), f.store(a_lo)
+
+
+def two_prod(a, b):
+    """TwoProd (App. C Alg. 5): x = RN(a·b), e = a·b − x. For components
+    of ≤ 11 significand bits the f32 product is exact, so no FMA is needed."""
+    f = fpu(a.dtype)
+    a32, b32 = f.load(a), f.load(b)
+    prod32 = a32 * b32
+    x = f.rn(prod32)
+    e = f.rn(prod32 - x)
+    return f.store(x), f.store(e)
+
+
+def grow(e: Expansion, a) -> Expansion:
+    """Grow (Paper Alg. 1): add float ``a`` to the expansion, with TwoSum
+    for the first combine (as the JAX package does)."""
+    f = fpu(e.hi.dtype)
+    x32, y32, a32 = f.load(e.hi), f.load(e.lo), f.load(a)
+    u = f.add(x32, a32)
+    a_virt = f.sub(u, x32)
+    x_virt = f.sub(u, a_virt)
+    v = f.add(f.sub(a32, a_virt), f.sub(x32, x_virt))
+    t = f.add(y32, v)
+    u2 = f.add(u, t)
+    v2 = f.sub(t, f.sub(u2, u))
+    return Expansion(f.store(u2), f.store(v2))
+
+
+def scaling(e: Expansion, v) -> Expansion:
+    """Scaling (App. C Alg. 6): expansion × float."""
+    f = fpu(e.hi.dtype)
+    x, err = two_prod(e.hi, v)
+    x32, err32 = f.load(x), f.load(err)
+    err32 = f.add(f.mul(f.load(e.lo), f.load(v)), err32)
+    x2 = f.add(x32, err32)
+    e2 = f.sub(err32, f.sub(x2, x32))
+    return Expansion(f.store(x2), f.store(e2))
+
+
+def mul(a: Expansion, b: Expansion) -> Expansion:
+    """Mul (App. C Alg. 7): expansion × expansion."""
+    f = fpu(a.hi.dtype)
+    x, e = two_prod(a.hi, b.hi)
+    x32, e32 = f.load(x), f.load(e)
+    cross = f.add(f.mul(f.load(a.hi), f.load(b.lo)), f.mul(f.load(a.lo), f.load(b.hi)))
+    e32 = f.add(e32, cross)
+    x2 = f.add(x32, e32)
+    lo2 = f.sub(e32, f.sub(x2, x32))
+    return Expansion(f.store(x2), f.store(lo2))
+
+
+def add_expansion(a: Expansion, b: Expansion) -> Expansion:
+    """Expansion + expansion → length-2 expansion (renormalized)."""
+    s_hi, s_lo = two_sum(a.hi, b.hi)
+    f = fpu(a.hi.dtype)
+    t = f.add(f.load(a.lo), f.load(b.lo))
+    t = f.add(f.load(s_lo), t)
+    x = f.add(f.load(s_hi), t)
+    lo = f.sub(t, f.sub(x, f.load(s_hi)))
+    return Expansion(f.store(x), f.store(lo))
+
+
+def from_float(x, dtype=torch.bfloat16, shape: tuple = (), device=None) -> Expansion:
+    """A scalar as a length-2 expansion, residual computed in f32
+    (0.999 → (1.0, −0.000999…) in bf16, Paper Table 1)."""
+    f = fpu(dtype)
+    wide = torch.as_tensor(x, dtype=F32, device=device)
+    hi = f.rn(wide)
+    lo = f.rn(wide - hi)
+    return Expansion(f.store(hi).expand(shape), f.store(lo).expand(shape))
+
+
+def ulp(x):
+    """Unit in the last place (Def. 3.1) for the dtype of x, elementwise,
+    from the f32 exponent bits (exact)."""
+    p, e_min = _SIG_BITS[x.dtype], _EMIN[x.dtype]
+    xf = x.to(F32).abs()
+    bits = torch.where(xf > 0, xf, torch.ones_like(xf)).view(torch.int32)
+    e = ((bits >> 23) & 0xFF).to(torch.int64) - 127
+    e = torch.clamp_min(e, e_min) - (p - 1)
+    # uint32 arithmetic of the JAX version, in int64 masked to 32 bits
+    u = ((e + 127) << 23) & 0xFFFFFFFF
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(F32)

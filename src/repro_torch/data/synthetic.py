@@ -5,7 +5,7 @@ transition tables as the JAX corpus (both build them with numpy from
 ``seed``). The token stream is NOT the JAX corpus's: that one samples with
 ``jax.random``; this one samples with a numpy ``Generator`` seeded from
 (seed, step, host_id). ``batch_at(step)`` is a pure function of its
-arguments.
+arguments; ``make_batch_fn`` hands its batches to the trainer as tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,3 +50,18 @@ class SyntheticCorpus:
             toks[:, t] = cand[state, idx]
             s1, s2 = s2, toks[:, t] % self.n_states
         return {"tokens": toks, "labels": toks}
+
+
+def make_batch_fn(cfg, shape, seed=0, device="cpu"):
+    """step → batch ({"tokens", "labels"} int64 tensors on ``device``) for a
+    (ModelConfig, ShapeConfig) pair. Frontend inputs (VLM/audio) are not
+    ported."""
+    if cfg.family in ("vlm", "audio") or cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: frontend batches not yet ported")
+    corpus = SyntheticCorpus(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=seed)
+
+    def fn(step: int, host_id: int = 0, n_hosts: int = 1):
+        b = corpus.batch_at(step, host_id, n_hosts)
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+    return fn

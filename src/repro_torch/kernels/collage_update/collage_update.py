@@ -1,0 +1,174 @@
+"""Fused Collage-AdamW bucket update: the wrapper of the Hopper CUDA kernel,
+the port of ``repro.kernels.collage_update.collage_update``.
+
+``collage_bucket_update`` updates ONE flat bucket in one pass: m/v EMAs,
+the bias-corrected AdamW update, the strategy's rule (A, B, C, KAHAN, SR,
+D⁻, D), round-to-nearest onto bf16 after every operation, and optionally
+the per-tile metric partials (``det_sum`` over each (br, 128) tile, then
+over the tiles). On a CUDA tensor it launches
+``csrc/collage_update/collage_update.cu`` (built on first use) or raises;
+on a CPU tensor it runs the plain version ``ref.collage_bucket_update_plain``.
+Nothing else selects the path. ``collage_bucket_update.launches`` counts
+kernel launches.
+
+The update is functional, as the JAX one: new state tensors are allocated
+and the inputs are left as they were (the kernel needs outputs that do not
+alias its inputs: with large tiles it re-reads them).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+LANES = 128       # last dim of every tile
+SUBLANES = 8
+BLOCK_ROWS = 256  # rows per tile at most
+N_PARTIALS = 8    # metrics partial row: dot, un2, en2, lost, gn2, 0, 0, 0
+
+KERNEL_SOURCE = "collage_update/collage_update.cu"
+
+# bucket-state fields each strategy reads and writes, in tile order
+_FIELDS = {
+    "A": ("theta", "m", "vhi"),
+    "B": ("theta", "m", "vhi", "delta"),
+    "C": ("theta", "m", "vhi", "vlo", "delta"),
+    "KAHAN": ("theta", "m", "vhi", "delta"),
+    "SR": ("theta", "m", "vhi"),
+    "D-": ("theta", "m", "vhi"),
+    "D": ("theta", "m", "vhi", "master"),
+}
+# strategy → the kernel's code (the template argument of the CUDA kernel)
+KERNEL_CODE = {"A": 0, "B": 1, "C": 2, "KAHAN": 3, "SR": 4, "D-": 5, "D": 6}
+# the kernel's pointer slots, in argument order
+_SLOTS = ("theta", "m", "vhi", "vlo", "delta", "master")
+# host constants, in the order of the kernel's constant block
+_CONSTS = ("lr", "bc1", "bc2", "b1", "c1", "b2", "c2", "cb1", "c1m", "cb2", "c2m", "b2hi",
+           "b2lo", "eps", "wd_upd", "factor")
+
+
+def state_fields(strategy: str) -> tuple:
+    return _FIELDS[strategy]
+
+
+def field_dtype(field: str, strategy: str):
+    """Storage dtype of a bucket-state field: bf16, but f32 for option D's
+    optimizer states and the master copy."""
+    if field == "master" or (strategy in ("D-", "D") and field in ("m", "vhi")):
+        return torch.float32
+    return torch.bfloat16
+
+
+def choose_block_rows(rows: int, block_rows: int = BLOCK_ROWS) -> int:
+    """Largest power-of-two-ish divisor of ``rows`` ≤ block_rows: the tile
+    height, shared by the kernel and the plain version so that the metric
+    partials are summed in the same order."""
+    br = min(block_rows, rows)
+    while rows % br:
+        br //= 2
+    return br
+
+
+def kernel_grid(n: int, block_rows: int = BLOCK_ROWS) -> tuple:
+    """(tile rows, tiles) of the kernel's launch over an n-element bucket.
+    The kernel takes n as a C ``int`` and indexes with it, so a bucket of
+    2^31 elements or more is refused here rather than wrapped."""
+    if n >= 2**31:
+        raise ValueError(f"bucket of {n} elements: the collage_update kernel takes fewer than "
+                         f"2^31; cap the bucket size (BucketPolicy.max_bucket_elems)")
+    br = choose_block_rows(n // LANES, block_rows)
+    return br, n // LANES // br
+
+
+def _library():
+    from repro_torch.kernels import build
+
+    lib = build.load(KERNEL_SOURCE)
+    fn = lib.collage_update
+    # code, n, br, pt_decay; g, 6 inputs, 6 outputs, partials, constants;
+    # seed, elem_offset; stream
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 15
+                   + [ctypes.c_uint32] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.collage_update_error_string.argtypes = [ctypes.c_int]
+    lib.collage_update_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(state, g, strategy):
+    fields = state_fields(strategy)
+    if set(state) != set(fields):
+        raise ValueError(f"state fields {sorted(state)} vs {fields}")
+    if g.dim() != 1 or g.shape[0] % LANES:
+        raise ValueError(f"g must be 1-D with a length that is a multiple of {LANES}: "
+                         f"{tuple(g.shape)}")
+    for f in fields:
+        t = state[f]
+        if t.shape != g.shape or t.device != g.device:
+            raise ValueError(f"{f}: {tuple(t.shape)} on {t.device} vs g {tuple(g.shape)}")
+
+
+def collage_bucket_update(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *,
+                          b1=0.9, b2=0.999, eps=1e-8, wd=0.0, strategy="C", pt_decay=False,
+                          compute_metrics=False, block_rows=BLOCK_ROWS):
+    """Fused update of ONE flat bucket → ``(new_state, partials)``; partials
+    is a 5-tuple of f32 0-dim tensors or None. ``lr``/``bc1``/``bc2`` are
+    host scalars (f32 values). ``seed`` and ``elem_offset`` (SR) index the
+    counter-based noise stream bucket-globally."""
+    from repro_torch.core import bucketing
+    from repro_torch.kernels.collage_update import ref
+
+    _check(state, g, strategy)
+    if g.device.type == "cpu":
+        return ref.collage_bucket_update_plain(
+            state, g, lr, bc1, bc2, seed, elem_offset, b1=b1, b2=b2, eps=eps, wd=wd,
+            strategy=strategy, pt_decay=pt_decay, compute_metrics=compute_metrics,
+            block_rows=block_rows, tiled_metrics=True)
+    if g.device.type != "cuda":
+        raise ValueError(f"collage_bucket_update: unsupported device {g.device}")
+    if g.dtype != torch.bfloat16:
+        raise TypeError(f"collage_update kernel takes bf16 gradients, got {g.dtype}")
+    for f in state_fields(strategy):
+        t = state[f]
+        if t.dtype != field_dtype(f, strategy):
+            raise TypeError(f"{f}: {t.dtype}, the kernel takes {field_dtype(f, strategy)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{f}: not contiguous")
+    if not g.is_contiguous():
+        raise ValueError("g: not contiguous")
+    if strategy == "SR" and seed is None:
+        raise ValueError("SR needs a seed")
+
+    n = g.shape[0]
+    br, grid = kernel_grid(n, block_rows)
+    lib = _library()
+    out = {f: torch.empty_like(state[f]) for f in state_fields(strategy)}
+    consts = ref.update_constants(b1, b2, eps, wd, pt_decay, lr)
+    consts.update(lr=float(np.float32(lr)), bc1=float(np.float32(bc1)),
+                  bc2=float(np.float32(bc2)))
+    host = (ctypes.c_float * len(_CONSTS))(*(consts[k] for k in _CONSTS))
+    partials = torch.empty((grid, N_PARTIALS), dtype=torch.float32, device=g.device) \
+        if compute_metrics else None
+    ptr = lambda d, f: d[f].data_ptr() if f in d else None
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.collage_update(
+        KERNEL_CODE[strategy], n, br, int(bool(pt_decay)), g.data_ptr(),
+        *(ptr(state, f) for f in _SLOTS), *(ptr(out, f) for f in _SLOTS),
+        partials.data_ptr() if partials is not None else None,
+        ctypes.addressof(host),
+        int(seed or 0) & bucketing.MASK32, int(elem_offset or 0) & bucketing.MASK32,
+        stream)
+    if err != 0:
+        msg = lib.collage_update_error_string(err).decode()
+        raise RuntimeError(f"collage_update kernel launch failed: {msg} (cudaError {err})")
+    collage_bucket_update.launches += 1
+    sums = None
+    if compute_metrics:
+        s = bucketing.det_sum(partials[:, :5], dim=0)
+        sums = tuple(s[i] for i in range(5))
+    return out, sums
+
+
+collage_bucket_update.launches = 0

@@ -28,13 +28,52 @@ from repro_torch.launch.serve import synthetic_requests
 from repro_torch.models.model import build_model
 
 
+def is_gemm(lower_name: str) -> bool:
+    """cuBLAS's matrix-product kernels, by name (``nvjet`` is its Hopper
+    kernel family)."""
+    return any(k in lower_name for k in ("gemm", "cutlass", "sm90_xmma", "cublas", "nvjet"))
+
+
 def _group(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_fwd kernel"
-    if "gemm" in n or "cutlass" in n or "sm90_xmma" in n or "cublas" in n:
+    if is_gemm(n):
         return "GEMM (cuBLAS)"
     return "other (elementwise, reductions, copies, indexing)"
+
+
+def device_summary(prof, wall_us: float, group) -> dict:
+    """Wall time, device busy share (union of kernel intervals), launches,
+    and device time by ``group(kernel name)`` and by kernel name."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    by_name = collections.Counter()
+    counts = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+        counts[e.name] += 1
+    by_group = collections.Counter()
+    for name, us in by_name.items():
+        by_group[group(name)] += us
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+        "device_idle_share": 1.0 - busy / wall_us, "kernel_launches": len(kernels),
+        "by_group_ms": {g: us / 1e3 for g, us in by_group.most_common()},
+        "top_kernels": [{"name": n[:90], "ms": us / 1e3, "calls": counts[n]}
+                        for n, us in by_name.most_common(20)],
+    }
 
 
 def main(argv=None):
@@ -58,34 +97,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         run()                                   # ends in a host copy: synchronised
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    by_name = collections.Counter()
-    counts = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.end - e.time_range.start
-        counts[e.name] += 1
-    by_group = collections.Counter()
-    for name, us in by_name.items():
-        by_group[_group(name)] += us
-    summary = {
-        "device": torch.cuda.get_device_name(0),
-        "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-        "device_idle_share": 1.0 - busy / wall_us, "kernel_launches": len(kernels),
-        "by_group_ms": {g: us / 1e3 for g, us in by_group.most_common()},
-        "top_kernels": [{"name": n[:90], "ms": us / 1e3, "calls": counts[n]}
-                        for n, us in by_name.most_common(12)],
-    }
+    summary = device_summary(prof, wall_us, _group)
     print(json.dumps(summary, indent=1))
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)

@@ -1,0 +1,69 @@
+"""Where the time of the gpt-125m train step goes, on the card.
+
+Runs the training workload of ``chip_smoke.py`` (gpt-125m, Collage-plus C,
+bucketed, fused update, flash_min_len 256, B 8 × L 512) for 3 warm-up
+steps, then ``--steps`` steps under ``torch.profiler``, and prints the wall
+time, the device's busy share of it, and device time by kernel, grouped
+(the port's kernels, bf16 and f32 GEMMs, softmax, the rest) and by name.
+The profiler's own host cost stretches the wall (and so the idle share);
+the device time per step is what it measures well.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_train
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.launch import train as tlaunch
+from repro_torch.launch.profile_serve import device_summary, is_gemm
+from repro_torch.train import train_loop
+
+
+def _group(name: str) -> str:
+    n = name.lower()
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "collage_update"):
+        if kernel in n:
+            return f"{kernel} kernel"
+    if is_gemm(n):
+        return "bf16 GEMM (cuBLAS)" if "sgemm" not in n and "f32f32" not in n \
+            else "f32 GEMM (cuBLAS, CUDA cores)"
+    if "softmax" in n:
+        return "softmax / log_softmax"
+    return "other (elementwise, reductions, copies, indexing)"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args(argv)
+    targs = tlaunch.parser().parse_args([
+        "--arch", "gpt-125m", "--precision", "C", "--bucketed", "--fused-kernel",
+        "--flash-min-len", "256", "--seq-len", "512", "--batch", "8",
+        "--steps", str(3 + args.steps), "--warmup", "2"])
+    _, model, opt, step_fn, batch_fn, dev = tlaunch.build(targs)
+    state = train_loop.init_state(model, opt, targs.seed, device=dev)
+    batches = [batch_fn(i) for i in range(3 + args.steps)]
+    for b in batches[:3]:
+        state, _ = step_fn(state, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            state, metrics = step_fn(state, b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    summary = device_summary(prof, wall_us, _group)
+    summary["steps"] = args.steps
+    summary["loss"] = float(metrics["loss"])
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -95,15 +95,17 @@ def use_flash(cfg, L: int) -> bool:
 
 
 def kernel_flash_attention(p, x, cfg, *, causal=True, window=0, positions=None):
-    """Causal self-attention through the flash kernel (``flash_fwd``): the
-    prefill hot path above ``cfg.flash_min_len``. Sliding windows and GQA
-    are handled in the kernel, any L without padding."""
+    """Causal self-attention through the flash kernels (``flash_mha``, the
+    autograd Function over ``flash_fwd`` and the backward pair): the train
+    and prefill hot path above ``cfg.flash_min_len``. Sliding windows and
+    GQA are handled in the kernels, any L without padding. Under
+    ``torch.no_grad`` (serving) only the forward kernel runs."""
     B, L, _ = x.shape
     if positions is None and cfg.rope_theta > 0:
         positions = _positions(B, L, x.device)
     q, k, v = _qkv(p, x, x, cfg, positions, positions)
     h, dh = cfg.n_heads, cfg.head_dim_
-    o = kflash.flash_attention(
+    o = kflash.flash_mha(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), causal=causal, window=window)
     out = o.transpose(1, 2).reshape(B, L, h * dh)

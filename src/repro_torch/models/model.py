@@ -1,11 +1,22 @@
-"""Top-level Model API for serving: init / forward / prefill / decode_step /
-generate, the port of ``repro.models.model`` for the dense families.
+"""Top-level Model API: init / forward / token_ce / loss / prefill /
+decode_step / generate, the port of ``repro.models.model`` for the dense
+families.
 
-Parameters live in a ``ParamTree`` (an ``nn.Module``) that holds the JAX
-package's stacked tree under the same names: ``embed`` (V, D),
-``decoder.groups.<g>.sub<i>.<name>`` with a leading layer axis (e.g.
-``decoder.groups.0.sub0.wq`` is (12, 768, 768) for gpt-125m),
-``decoder.final_norm`` and ``lm_head`` (D, V).
+Parameters hold the JAX package's stacked tree under the same names:
+``embed`` (V, D), ``decoder.groups.<g>.sub<i>.<name>`` with a leading layer
+axis (e.g. ``decoder.groups.0.sub0.wq`` is (12, 768, 768) for gpt-125m),
+``decoder.final_norm`` and ``lm_head`` (D, V). Two containers carry them:
+
+* ``ParamTree`` (an ``nn.Module`` of frozen ``nn.Parameter``s), what
+  ``init`` returns, for serving;
+* ``ParamView``, a plain nested view whose leaves are the tensors given,
+  not re-wrapped: what the training path builds from
+  ``BucketedParams.tree()``, so every leaf stays a view of its flat bucket
+  and a backward pass leaves the gradient in the bucket. (Wrapping a view
+  in ``nn.Parameter`` would make a new leaf and cut it from the bucket.)
+
+Every method takes either, a nested dict of tensors, or a
+``BucketedParams``.
 
 Serving: the KV caches travel inside a ``DecodeState`` that also carries
 the per-row cache position ``pos (B,)``. ``prefill`` sets ``pos`` to the
@@ -26,9 +37,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.bucketing import BucketedParams
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import ACC, dense_init, embed_lookup, rms_norm, rms_norm_init
+
+# MoE load-balance penalty weight in the training objective (the JAX
+# package's ``AUX_LOSS_COEF``)
+AUX_LOSS_COEF = 0.01
 
 
 def _frozen(t):
@@ -57,6 +73,50 @@ class ParamTree(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+class _Decoder:
+    def __init__(self, groups, final_norm):
+        self.groups = groups
+        self.final_norm = final_norm
+
+
+class ParamView:
+    """The parameter tree as plain attributes over the given tensors (no
+    ``nn.Parameter`` wrapping): ``embed``, ``decoder.groups`` (a list of
+    {sub: {name: tensor}}), ``decoder.final_norm``, ``lm_head``."""
+
+    def __init__(self, tree: dict):
+        self.embed = tree["embed"]
+        self.decoder = _Decoder(tree["decoder"]["groups"], tree["decoder"]["final_norm"])
+        self.lm_head = tree.get("lm_head")
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def param_dict(params) -> dict:
+    """The parameters as the JAX package's nested dict of tensors."""
+    if isinstance(params, dict):
+        return params
+    if isinstance(params, BucketedParams):
+        return params.tree()
+    tree = {"embed": params.embed,
+            "decoder": {"groups": [{key: {n: t for n, t in sub.items()} for key, sub in g.items()}
+                                   for g in params.decoder.groups],
+                        "final_norm": params.decoder.final_norm}}
+    if params.lm_head is not None:
+        tree["lm_head"] = params.lm_head
+    return tree
+
+
+def as_view(params):
+    """ParamTree / ParamView pass through; a dict or BucketedParams becomes
+    a ParamView over the same tensors."""
+    if isinstance(params, (ParamTree, ParamView)):
+        return params
+    return ParamView(param_dict(params))
 
 
 @dataclasses.dataclass
@@ -130,14 +190,37 @@ class Model:
                    for g in self.cfg.decoder_program() for s in g.period)
 
     # ------------------------------------------------------------ forward --
-    def forward(self, params, batch):
+    def forward(self, params, batch, remat: str = "none"):
         """Full-sequence logits. Returns (logits fp32, aux_loss); aux_loss is
         the MoE balance loss of the JAX package, 0 until MoE is ported."""
+        if remat != "none":
+            raise NotImplementedError(f"remat {remat!r}: not yet ported to repro_torch")
         cfg = self.cfg
+        params = as_view(params)
         x = embed_lookup(params.embed, batch["tokens"])
         for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
             x = tf.group_apply(gp, x, g, cfg)
         return self._head(params, x), torch.zeros((), dtype=ACC, device=x.device)
+
+    @staticmethod
+    def token_ce(logits, labels):
+        """Next-token cross entropy (fp32) from full-sequence logits
+        (..., L, V) and labels (..., L); labels < 0 are masked."""
+        logits = logits[..., :-1, :]
+        targets = labels[..., 1:]
+        mask = (targets >= 0).to(ACC)
+        logp = torch.log_softmax(logits.to(ACC), dim=-1)
+        ll = torch.gather(logp, -1, targets.clamp_min(0)[..., None])[..., 0]
+        ntok = torch.clamp_min(mask.sum(), 1.0)
+        return -(ll * mask).sum() / ntok
+
+    def loss(self, params, batch, remat: str = "none"):
+        """Next-token cross entropy (fp32) plus the MoE aux term; returns
+        (loss, {"ce", "aux", "ppl"})."""
+        logits, aux = self.forward(params, batch, remat=remat)
+        ce = self.token_ce(logits, batch["labels"])
+        total = ce + AUX_LOSS_COEF * aux
+        return total, {"ce": ce, "aux": aux, "ppl": torch.exp(ce)}
 
     # ------------------------------------------------------------ serving --
     def init_decode_state(self, batch_size: int, cache_len: int, *, device="cuda") -> DecodeState:
@@ -159,6 +242,7 @@ class Model:
             raise ValueError(f"cache_len {cache_len} < prompt {T}: the KV write would clip")
         if prompt_lens is not None and self._has_recurrent_state():
             raise ValueError("ragged prefill (prompt_lens) unsupported for recurrent-state archs")
+        params = as_view(params)
         x = embed_lookup(params.embed, batch["tokens"])
         layers = []
         for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
@@ -180,6 +264,7 @@ class Model:
         ``active (B,) bool``: rows with False freeze ``pos`` and keep their
         caches bit-identical; their logits are garbage the caller discards."""
         cfg = self.cfg
+        params = as_view(params)
         x = embed_lookup(params.embed, token)
         for g, gp, c in zip(cfg.decoder_program(), params.decoder.groups, state.layers):
             x, _ = tf.group_decode(gp, x, g, cfg, c, state.pos, active=active)

@@ -50,3 +50,78 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take():
         s = q[..., :32].contiguous()                              # dh 32: not built
         tflash.flash_fwd(s, s, s)
     assert tflash.flash_fwd.launches == before
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,L,dh,causal,window", [
+    (8, 12, 12, 512, 64, True, 0),       # gpt-125m training shape
+    (2, 8, 2, 256, 128, True, 0),        # GQA, dh 128
+    (2, 4, 2, 300, 64, True, 64),        # odd L + window
+    (1, 4, 4, 5, 64, True, 0),           # L below one tile
+    (2, 4, 2, 200, 64, False, 48),       # non-causal + window
+])
+def test_flash_bwd_kernels_match_plain_on_card(B, H, Hkv, L, dh, causal, window):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(L + H + 1)
+    mk = lambda h: torch.randn((B, h, L, dh), generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v, do = mk(H), mk(Hkv), mk(Hkv), mk(H)
+    o, lse = tflash.flash_fwd(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window)
+    dq, delta = tflash.flash_bwd_dq(q, k, v, lse, do, **kw)
+    dq_p, delta_p = tflash.flash_bwd_dq_plain(q, k, v, lse, do, **kw)
+    got = (dq, *tflash.flash_bwd_dkv(q, k, v, lse, do, delta, **kw))
+    want = (dq_p, *tflash.flash_bwd_dkv_plain(q, k, v, lse, do, delta_p, **kw))
+    torch.cuda.synchronize()
+    # chip_smoke.py states the reasons for these tolerances
+    assert bool(((delta - delta_p).abs() <= 1e-3 * (1 + delta_p.abs())).all())
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        scale = b.abs().max().clamp_min(1e-6)
+        assert bool(((a - b).abs() <= 2.0**-6 * b.abs() + 2e-2 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["A", "B", "C", "KAHAN", "SR", "D-", "D"])
+@pytest.mark.parametrize("n", [3 * 1024, 512 * 128])     # br 24, and br 256 (two passes)
+def test_collage_update_kernel_bit_identical_to_plain(code, n):
+    _card()
+    from repro_torch.kernels.collage_update import collage_update as cu
+    from repro_torch.kernels.collage_update import ref
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    rnd = lambda s: torch.randn((n,), generator=g, device="cuda") * s
+    scales = {"theta": 0.05, "m": 1e-3, "vhi": 1e-5, "vlo": 1e-9, "delta": 1e-5,
+              "master": 0.05}
+    state = {f: (rnd(scales[f]).abs() if f == "vhi" else rnd(scales[f])).to(
+        cu.field_dtype(f, code)) for f in cu.state_fields(code)}
+    grad = rnd(1e-2).to(torch.bfloat16)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1, strategy=code, compute_metrics=True,
+              pt_decay=code == "A", seed=77 if code == "SR" else None,
+              elem_offset=2**32 - 1024 if code == "SR" else None)
+    a, pa = cu.collage_bucket_update(state, grad, 1e-3, 0.19, 0.0975, **kw)
+    b, pb = ref.collage_bucket_update_plain(state, grad, 1e-3, 0.19, 0.0975, **kw)
+    torch.cuda.synchronize()
+    for f in a:
+        assert torch.equal(a[f].view(torch.uint8), b[f].view(torch.uint8)), f
+    for x, y in zip(pa, pb):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_bwd_wrappers_raise_on_what_the_kernels_do_not_take():
+    _card()
+    q = torch.zeros((1, 2, 16, 64), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 16), device="cuda")
+    before = (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches)
+    with pytest.raises(TypeError):
+        tflash.flash_bwd_dq(q.float(), q.float(), q.float(), lse, q.float())
+    with pytest.raises(TypeError):
+        tflash.flash_bwd_dkv(q, q, q, lse.to(torch.bfloat16), q, lse)
+    with pytest.raises(ValueError):
+        tflash.flash_bwd_dq(q, q, q, lse[..., :8], q)
+    assert (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches) == before

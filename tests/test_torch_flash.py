@@ -94,3 +94,118 @@ def test_wrapper_rejects_bad_shapes():
         tflash.flash_fwd(q, k[:, :, :4], v, causal=True)
     with pytest.raises(ValueError):
         tflash.flash_fwd(q, q[:, :3], q[:, :3], causal=True)      # 4 heads vs 3 kv heads
+
+
+# ------------------------------------------------------------- backward --
+# Shapes of tests/test_flash_vjp.py's sweep (GQA, window, odd L, non-causal)
+# plus L below one 64-row tile; the JAX kernels run in interpret mode with
+# 32-blocks. Tolerances are that file's: fp32 rtol 2e-4 / atol 2e-5, bf16 0.05.
+BWD_SWEEP = [
+    # L, H, Hkv, dh, causal, window
+    (96, 4, 2, 16, True, 0),          # GQA + odd L
+    (200, 4, 1, 32, True, 0),         # group 4, odd L
+    (200, 4, 2, 32, True, 48),        # window + GQA + odd L
+    (100, 2, 2, 16, False, 0),        # non-causal + odd L
+    (192, 2, 1, 32, False, 48),       # non-causal + window
+    (40, 4, 2, 16, True, 0),          # L < 64
+]
+
+
+def _jax_grads(q, k, v, do, causal, window, dtype=jnp.float32):
+    from repro.kernels.flash_attention.flash_attention import flash_mha as jflash_mha
+
+    def f(q, k, v):
+        o = jflash_mha(q, k, v, causal=causal, window=window, blk_q=32, blk_k=32,
+                       interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * do)
+
+    args = [jnp.asarray(x).astype(dtype) for x in (q, k, v)]
+    return [np.asarray(g, np.float32) for g in jax.grad(f, argnums=(0, 1, 2))(*args)]
+
+
+def _torch_grads(q, k, v, do, causal, window, dtype=torch.float32):
+    tq, tk, tv = (torch.from_numpy(x).to(dtype).requires_grad_(True) for x in (q, k, v))
+    o = tflash.flash_mha(tq, tk, tv, causal=causal, window=window)
+    (o.float() * torch.from_numpy(do)).sum().backward()
+    return [t.grad.float().numpy() for t in (tq, tk, tv)]
+
+
+@pytest.mark.parametrize("L,H,Hkv,dh,causal,window", BWD_SWEEP)
+def test_flash_mha_grads_match_jax_fp32(L, H, Hkv, dh, causal, window):
+    q, k, v = _inputs(L + H + window, 1, H, Hkv, L, dh)
+    do = np.random.default_rng(L).standard_normal(q.shape).astype(np.float32)
+    for jg, tg, name in zip(_jax_grads(q, k, v, do, causal, window),
+                            _torch_grads(q, k, v, do, causal, window), "qkv"):
+        np.testing.assert_allclose(tg, jg, rtol=2e-4, atol=2e-5, err_msg=f"d{name}")
+
+
+def test_flash_mha_grads_match_jax_bf16():
+    q, k, v = _inputs(5, 2, 4, 2, 96, 16)
+    do = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    for jg, tg in zip(_jax_grads(q, k, v, do, True, 48, jnp.bfloat16),
+                      _torch_grads(q, k, v, do, True, 48, torch.bfloat16)):
+        np.testing.assert_allclose(tg, jg, rtol=0.05, atol=0.05)
+
+
+def test_bwd_plain_parts_and_wrapper_on_cpu():
+    """flash_bwd on CPU tensors runs the plain pair without launching; rows
+    that no key reaches (LSE +1e30) contribute exactly 0."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, 1, 4, 2, 33, 16))
+    do = torch.from_numpy(np.random.default_rng(2).standard_normal(q.shape).astype(np.float32))
+    o, lse = tflash.flash_fwd_plain(q, k, v, causal=True, window=16)
+    before = (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches)
+    got = tflash.flash_bwd(q, k, v, lse, do, causal=True, window=16)
+    want = tflash.flash_bwd_plain(q, k, v, lse, do, causal=True, window=16)
+    assert (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches) == before
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    lse_dead = torch.full_like(lse, 1e30)
+    dq, delta = tflash.flash_bwd_dq_plain(q, k, v, lse_dead, do, window=16)
+    assert not dq.any() and not delta.any()
+    dk, dv = tflash.flash_bwd_dkv_plain(q, k, v, lse_dead, do, (do * o).sum(-1), window=16)
+    assert not dk.any() and not dv.any()
+
+
+def test_delta_is_rowsum_of_do_o_in_fp32():
+    """The dQ pass's D = Σ_k p·dp equals the JAX package's rowsum(dO ∘ O)
+    in exact arithmetic: in f32 they agree to f32 rounding (rtol 1e-5)."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(4, 2, 4, 2, 96, 16))
+    do = torch.from_numpy(np.random.default_rng(4).standard_normal(q.shape).astype(np.float32))
+    o, lse = tflash.flash_fwd_plain(q, k, v, causal=True, window=48)
+    _, delta = tflash.flash_bwd_dq_plain(q, k, v, lse, do, causal=True, window=48)
+    torch.testing.assert_close(delta, (do * o).sum(-1), rtol=1e-5, atol=1e-5)
+
+
+def test_bf16_dq_keeps_rows_of_ds_summing_to_zero():
+    """Keys sharing a large common part and nearly equal values make the
+    true ds small: D from the bf16-rounded O (the JAX definition) then gives
+    a dQ far from the f32 one, while D = Σ_k p·dp keeps it within bf16
+    rounding (measured 0.0016 vs 2.3 relative; limits 0.01 and 0.5)."""
+    rng = np.random.default_rng(0)
+    B, H, L, dh = 1, 2, 128, 32
+    q = rng.standard_normal((B, H, L, dh)) * 0.5
+    k = rng.standard_normal(dh) * 3 + rng.standard_normal((B, H, L, dh)) * 0.5
+    v = 1.0 + rng.standard_normal((B, H, L, dh)) * 0.02
+    do = rng.standard_normal((B, H, L, dh))
+    tq, tk, tv, tdo = (torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    _, lse32 = tflash.flash_fwd_plain(tq.float(), tk.float(), tv.float())
+    dq32, _ = tflash.flash_bwd_dq_plain(tq.float(), tk.float(), tv.float(), lse32, tdo.float())
+    o, lse = tflash.flash_fwd_plain(tq, tk, tv)
+    dq, _ = tflash.flash_bwd_dq_plain(tq, tk, tv, lse, tdo)
+    _, ds, kk, _ = tflash._bwd_plain_parts(tq, tk, tv, lse, tdo, (tdo.float() * o.float()).sum(-1),
+                                           True, 0)
+    dq_rowsum = torch.einsum("bhls,bhsd->bhld", ds, kk) * dh**-0.5
+    rel = lambda a: ((a.float() - dq32).norm() / dq32.norm()).item()
+    assert rel(dq) < 0.01 and rel(dq_rowsum) > 0.5
+
+
+def test_no_grad_forward_launches_nothing_extra_and_keeps_grad_fn():
+    """Under no_grad flash_mha is the forward alone; with grad it carries a
+    grad_fn (the ctypes forward alone would not)."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(3, 1, 4, 4, 20, 16))
+    with torch.no_grad():
+        o = tflash.flash_mha(q, k, v)
+    assert o.grad_fn is None
+    o = tflash.flash_mha(q.requires_grad_(True), k, v)
+    assert o.grad_fn is not None

@@ -1,5 +1,6 @@
 """Import guard: the port and chip_smoke.py import nothing of JAX, ml_dtypes
-or the JAX package, and the port serves with JAX made unimportable."""
+or the JAX package, and the port serves and trains with JAX made
+unimportable."""
 
 import ast
 import os
@@ -53,6 +54,11 @@ def test_port_serves_with_jax_unimportable():
                           sampling=SamplingParams())
         res, rep = eng.run([Request(tokens=np.arange(9)), Request(tokens=np.arange(3))], 3)
         assert [r.n_generated for r in res] == [3, 3], res
+        from repro_torch.launch import train
+        hist = train.main(["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
+                           "--batch", "2", "--bucketed", "--fused-kernel",
+                           "--flash-min-len", "8", "--log-every", "1"])
+        assert len(hist) == 2 and hist[-1]["edq"] > 0, hist
         assert not any(m.split(".")[0] in ("jax", "ml_dtypes") for m in sys.modules
                        if sys.modules[m] is not None)
         print("PORT_WITHOUT_JAX_OK")
