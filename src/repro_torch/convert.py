@@ -10,6 +10,13 @@ machine has none).
 ``bucketed_from_numpy`` takes a JAX ``BucketedParams`` + ``BucketedOptState``
 as numpy buckets and the layout's ``to_json()``, and returns the port's,
 bit-exactly; ``bucketed_to_numpy`` is its inverse (for the tests).
+
+``opt_state_from_numpy`` takes a JAX tree-layout ``CollageOptState`` as
+numpy trees (Expansion leaves of ``v`` as ``(hi, lo)`` tuples) and returns
+the port's; ``opt_state_to_numpy`` is its inverse. The SR state is an int
+seed in the port: a JAX threefry key ``[k0, k1]`` becomes ``k0 ^ k1`` (the
+seed the JAX ``fused_step`` folds from it; ``PRNGKey(s)`` gives ``s``), and
+goes back as ``[0, seed]``.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import ast
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bucketing
+from repro_torch.core.collage import CollageOptState
+from repro_torch.core.mcf import Expansion
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models.model import ParamTree
 
@@ -107,3 +116,51 @@ def bucketed_to_numpy(bparams, bstate, bf16_dtype=np.uint16) -> dict:
     return {"layout": bparams.layout.to_json(), "data": conv(bparams.data), "m": conv(bstate.m),
             "vhi": conv(bstate.vhi), "vlo": conv(bstate.vlo), "delta": conv(bstate.delta),
             "master": conv(bstate.master), "step": bstate.step, "rng": bstate.rng}
+
+
+def _opt_tree(node, device):
+    """A numpy tree → tensors; a ``(hi, lo)`` tuple of arrays → Expansion."""
+    if node is None:
+        return None
+    if isinstance(node, tuple) and len(node) == 2 and all(isinstance(x, np.ndarray)
+                                                          for x in node):
+        return Expansion(tensor_from_numpy(node[0], device), tensor_from_numpy(node[1], device))
+    if isinstance(node, dict):
+        return {k: _opt_tree(v, device) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_opt_tree(v, device) for v in node]
+    return tensor_from_numpy(node, device)
+
+
+def opt_state_from_numpy(step, m, v, delta=None, master=None, rng=None, *,
+                         device="cuda") -> CollageOptState:
+    """A JAX tree-layout ``CollageOptState`` (numpy trees; None for a role the
+    strategy lacks) → the port's, bit-exactly. ``rng``: a JAX key (2 uint32),
+    an int seed, or None."""
+    dev = resolve_device(device)
+    if rng is not None:
+        key = np.asarray(rng, dtype=np.uint32).reshape(-1)
+        rng = int(key[0]) ^ int(key[1]) if key.size == 2 else int(key[0])
+    return CollageOptState(step=int(step), m=_opt_tree(m, dev), v=_opt_tree(v, dev),
+                           delta=_opt_tree(delta, dev), master=_opt_tree(master, dev), rng=rng)
+
+
+def _opt_tree_to_numpy(node, bf16_dtype):
+    if node is None:
+        return None
+    if isinstance(node, Expansion):
+        return (tensor_to_numpy(node.hi, bf16_dtype), tensor_to_numpy(node.lo, bf16_dtype))
+    if isinstance(node, dict):
+        return {k: _opt_tree_to_numpy(v, bf16_dtype) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_opt_tree_to_numpy(v, bf16_dtype) for v in node]
+    return tensor_to_numpy(node, bf16_dtype)
+
+
+def opt_state_to_numpy(state: CollageOptState, bf16_dtype=np.uint16) -> dict:
+    """Inverse of ``opt_state_from_numpy``: {"step", "m", "v", "delta",
+    "master", "rng"}; the SR seed as a JAX-style key ``[0, seed]``."""
+    conv = lambda t: _opt_tree_to_numpy(t, bf16_dtype)
+    rng = None if state.rng is None else np.array([0, state.rng & bucketing.MASK32], np.uint32)
+    return {"step": int(state.step), "m": conv(state.m), "v": conv(state.v),
+            "delta": conv(state.delta), "master": conv(state.master), "rng": rng}

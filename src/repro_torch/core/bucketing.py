@@ -18,7 +18,8 @@ the model leaves each bucket's gradient as ONE flat tensor — the port of
 
 Also here: ``det_sum`` (the pinned-order reduction shared by the kernel
 epilogue and the plain version) and the counter-based SR noise stream
-(``lowbias32``, ``fold_seed``, ``sr_noise_bits``, ``stochastic_round_bits``).
+(``lowbias32``, ``fold_seed``, ``sr_bits32``, ``sr_noise_bits``,
+``stochastic_round_bits``).
 torch has no uint32 ``>>`` or ``+``, so the 32-bit hash runs in int64
 masked to 32 bits; products are split so that no int64 product overflows.
 
@@ -93,6 +94,16 @@ def tree_unflatten(skel: Any, leaves: Sequence) -> Any:
 
 def tree_leaves(tree: Any) -> list:
     return [leaf for _, leaf in tree_flatten_with_path(tree)[0]]
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` leaf by leaf over trees of one structure (nested dicts and
+    lists; anything else, an Expansion included, is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 # --------------------------------------------------------------------------
@@ -314,11 +325,16 @@ def fold_seed(seed, *vals) -> torch.Tensor:
     return s
 
 
+def sr_bits32(idx, seed) -> torch.Tensor:
+    """32 uniform random bits per element, keyed by the element's index and
+    the folded seed (int64 in [0, 2^32))."""
+    return lowbias32((mul32(_u32(idx), _GOLDEN) + int(_u32(seed))) & MASK32)
+
+
 def sr_noise_bits(idx, seed) -> torch.Tensor:
     """16 uniform noise bits per element, keyed by the element's global
     index within its bucket and the folded seed (int64 in [0, 2^16))."""
-    h = lowbias32((mul32(_u32(idx), _GOLDEN) + _u32(seed).to(_u32(idx).device)) & MASK32)
-    return h & 0xFFFF
+    return sr_bits32(idx, seed) & 0xFFFF
 
 
 def stochastic_round_bits(x32: torch.Tensor, noise16: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,34 @@
 """Collage: precision-aware AdamW (Paper Algorithm 2), the port of
-``repro.core.collage`` for the bucketed layout.
+``repro.core.collage``.
 
-``init`` builds the tree-layout state (zeros of the right roles and
-dtypes); ``init_bucketed``/``step_bucketed`` keep params and all optimizer
-state as persistent flat buckets (``core.bucketing``) and run one fused
-update per bucket (``kernels.collage_update.ops.bucketed_step``).
+Two layouts, as in the JAX package:
+
+* tree layout (``init``/``step``): per-leaf state in nested dicts shaped
+  like the params, one eager update per leaf. With ``use_fused_kernel``
+  the step goes through the bucket engine's shim
+  (``kernels.collage_update.ops.fused_step``), which re-buckets every call.
+* bucket layout (``init_bucketed``/``step_bucketed``): params and all
+  optimizer state as persistent flat buckets (``core.bucketing``), one
+  fused update per bucket (``kernels.collage_update.ops.bucketed_step``).
+
+The tree step's arithmetic is the JAX package's ``_leaf_step``: every f32
+operation a separate eager op, rounded on its own (no FMA: no ``addcmul``
+or ``lerp`` on f32 state), every bf16 rounding ``x.to(bfloat16).float()``,
+and the square root taken in f64 and rounded once (torch's vectorised CPU
+``sqrt`` is not correctly rounded). Its metric partials ⟨Δθ,Δθ̂⟩, ‖Δθ‖²,
+‖Δθ̂‖² and the lost count come from ``kernels.edq.edq_partials`` (one
+launch per leaf on the card), ‖g‖² from a torch sum. Stochastic rounding
+draws its noise from the counter-based hash of ``core.bucketing``, keyed by
+(seed, step, leaf index, element index): the JAX package splits a threefry
+key per leaf, a stream the port cannot reproduce.
 
 Scalars (lr, bias corrections) are computed on the host in numpy float32
 and passed to the update by value, so a step never synchronises with the
 card to read them. numpy's float32 ``pow``/``cos`` may differ from XLA's in
 the last bit at some steps; parity tests feed the JAX package's scalars.
 
-Not ported yet: the tree-layout ``step`` (and its per-leaf threefry SR) and
-``convert_state``; both raise ``NotImplementedError``.
+Not ported yet: ``step(..., metrics_partials=True)`` (only the sharded
+pipeline engine calls it); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +42,7 @@ import torch
 from repro_torch.core import bucketing, mcf
 from repro_torch.core.mcf import Expansion
 from repro_torch.core.precision import PrecisionPolicy, Strategy
+from repro_torch.kernels.edq import edq as kedq
 
 Schedule = Callable[[int], np.float32]
 F32 = torch.float32
@@ -53,14 +70,6 @@ class StepMetrics(NamedTuple):
     grad_norm: torch.Tensor
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 class CollageAdamW:
     """AdamW with a selectable precision strategy (Paper Table 2)."""
 
@@ -82,16 +91,17 @@ class CollageAdamW:
     def init(self, params: Any) -> CollageOptState:
         s = self.policy.strategy
         cdt = self.policy.param_dtype
-        zeros = lambda dt: _map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device),
-                                params)
+        zeros = lambda dt: bucketing.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params)
         if s in (Strategy.D_MINUS_MW, Strategy.D_MIXED_MW):
             m, v = zeros(F32), zeros(F32)
         else:
             m, v = zeros(cdt), zeros(cdt)
         if s.uses_expansion_second_moment:
-            v = _map(mcf.zeros_like_expansion, v)
+            v = bucketing.tree_map(mcf.zeros_like_expansion, v)
         delta = zeros(cdt) if (s.uses_expansion_params or s is Strategy.KAHAN) else None
-        master = _map(lambda p: p.to(F32), params) if s.uses_master_weights else None
+        master = bucketing.tree_map(lambda p: p.to(F32), params) \
+            if s.uses_master_weights else None
         rng = self.sr_seed if s is Strategy.SR else None
         return CollageOptState(step=0, m=m, v=v, delta=delta, master=master, rng=rng)
 
@@ -110,10 +120,155 @@ class CollageAdamW:
         return kops.bucketed_step(self, grads, bparams, bstate, elem_offsets=elem_offsets,
                                   reduce_fn=reduce_fn)
 
-    def step(self, grads, params, state, **kw):
-        raise NotImplementedError(
-            "CollageAdamW.step (tree layout): not yet ported to repro_torch; "
-            "use the bucketed layout (policy.bucketing.enabled)")
+    def step(self, grads, params, state: CollageOptState, *, metrics_partials: bool = False,
+             scalars=None):
+        """One tree-layout step → ``(new_params, new_state, StepMetrics)``.
+        ``scalars``: (lr, bc1, bc2) to use in place of the host-computed ones
+        (parity tests feed the JAX package's)."""
+        from repro_torch.kernels.collage_update import ops as kops
+
+        if metrics_partials:
+            raise NotImplementedError("CollageAdamW.step(metrics_partials=True) (per-leaf "
+                                      "partials of the pipeline engine): not yet ported to "
+                                      "repro_torch")
+        t = state.step + 1
+        lr, bc1, bc2 = scalars if scalars is not None else kops._scalars(self, t)
+        if self.use_fused_kernel:
+            return kops.fused_step(self, grads, params, state, scalars=(lr, bc1, bc2))
+
+        s = self.policy.strategy
+        flat, skel = bucketing.tree_flatten_with_path(grads)
+        leaves_g = [g for _, g in flat]
+        n = len(leaves_g)
+        leaves_p = bucketing.tree_leaves(params)
+        leaves_m = bucketing.tree_leaves(state.m)
+        leaves_v = bucketing.tree_leaves(state.v)
+        leaves_d = bucketing.tree_leaves(state.delta) if state.delta is not None else [None] * n
+        leaves_w = bucketing.tree_leaves(state.master) if state.master is not None else [None] * n
+        seeds = [bucketing.fold_seed(state.rng, t, i) if s is Strategy.SR else None
+                 for i in range(n)]
+        dev = leaves_g[0].device
+        sc = {"lr": _host(lr), "bc1": _host(bc1), "bc2": _host(bc2)}
+
+        outs, parts = [], []
+        for args in zip(leaves_g, leaves_p, leaves_m, leaves_v, leaves_d, leaves_w, seeds):
+            *out, upd, eff = self._leaf_step(*args, sc)
+            outs.append(out)
+            if self.compute_metrics:     # taken leaf by leaf: Δθ, Δθ̂ are freed at once
+                parts.append(self._leaf_partials(args[0], upd, eff))
+        new_p, new_m, new_v, new_d, new_w = map(list, zip(*outs))
+
+        if self.compute_metrics:
+            metrics = kops.finalize_metrics(kops.sum_partials(parts, dev),
+                                            sum(g.numel() for g in leaves_g))
+        else:
+            metrics = StepMetrics(*kops._zeros5(dev))
+        unflat = lambda leaves: bucketing.tree_unflatten(skel, leaves)
+        new_state = CollageOptState(
+            step=t, m=unflat(new_m), v=unflat(new_v),
+            delta=unflat(new_d) if state.delta is not None else None,
+            master=unflat(new_w) if state.master is not None else None, rng=state.rng)
+        return unflat(new_p), new_state, metrics
+
+    # ------------------------------------------------- per-leaf update rules
+    def _leaf_step(self, g, p, m, v, d, w, seed, sc):
+        """One leaf of ``step``: the JAX package's ``_leaf_step``, op for op.
+        Returns (θ, m, v, δθ, master, Δθ in f32, Δθ̂ in f32)."""
+        s = self.policy.strategy
+        cdt = self.policy.param_dtype
+        lr, bc1, bc2 = sc["lr"], sc["bc1"], sc["bc2"]
+        eps = _host(self.eps)
+
+        if s in (Strategy.D_MINUS_MW, Strategy.D_MIXED_MW):
+            # f32 optimizer states; grads arrive in bf16 (Table 2) → upcast
+            g32 = g.to(F32)
+            m = _host(self.b1) * m + _host(1.0 - self.b1) * g32
+            v = _host(self.b2) * v + _host(1.0 - self.b2) * g32 * g32
+            mhat = m / bc1
+            vhat = v / bc2
+            f = mcf.fpu(cdt)
+            theta_ref = w if s is Strategy.D_MIXED_MW else p.to(F32)
+            upd32 = -lr * (mhat / (mcf.sqrt_rn(vhat) + eps) + self._wd_term(theta_ref))
+            if s is Strategy.D_MIXED_MW:
+                w = w + upd32                       # f32 master update
+                new_p32 = f.rn(w)                   # RN onto the bf16 grid
+                eff = new_p32 - f.load(p)
+            else:
+                theta32 = f.load(p)
+                new_p32 = f.add(theta32, f.rn(upd32))   # bf16 ⊕ → lost arithmetic
+                eff = new_p32 - theta32
+            return f.store(new_p32), m, v, d, w, upd32, eff
+
+        # bf16-storage families (A / B / C / KAHAN / SR): EMAs in the
+        # component dtype through the strict FPU
+        f = mcf.fpu(cdt)
+        g32 = f.load(g)
+        theta32 = f.load(p)
+        cb1, c1m = f.rn(_host(self.b1)), f.rn(_host(1 - self.b1))
+        cb2, c2m = f.rn(_host(self.b2)), f.rn(_host(1 - self.b2))
+        m32 = f.add(f.mul(cb1, f.load(m)), f.mul(c1m, g32))
+        m = f.store(m32)
+        g2 = f.mul(g32, g32)
+        if s.uses_expansion_second_moment:
+            beta2_e = mcf.from_float(self.b2, dtype=cdt)     # host scalars
+            v = mcf.grow(mcf.mul(beta2_e, v), f.store(f.mul(c2m, g2)))   # Alg. 2 line 9
+            vhat32 = v.value(F32) / bc2
+        else:
+            v32 = f.add(f.mul(cb2, f.load(v)), f.mul(c2m, g2))
+            v = f.store(v32)                        # β₂ cast to bf16 (→ 1.0!)
+            vhat32 = v32 / bc2
+        mhat32 = m32 / bc1
+        # Δθ formed in f32, rounded once
+        upd32 = -lr * (mhat32 / (mcf.sqrt_rn(vhat32) + eps) + self._wd_term(theta32))
+        upd16_32 = f.rn(upd32)
+
+        if s is Strategy.A_BF16:
+            base32 = self._maybe_pt_decay(theta32, lr, f)
+            new_p32 = f.add(base32, upd16_32)       # bf16 ⊕: lost arithmetic
+            return f.store(new_p32), m, v, d, w, upd32, new_p32 - theta32
+        if s is Strategy.SR:
+            idx = torch.arange(p.numel(), dtype=torch.int64, device=p.device).reshape(p.shape)
+            new_p = mcf.stochastic_round(theta32 + upd32, cdt, bucketing.sr_bits32(idx, seed))
+            return new_p, m, v, d, w, upd32, f.load(new_p) - theta32
+        if s is Strategy.KAHAN:
+            upd_c = f.add(upd16_32, f.load(d))
+            new_p32 = f.add(theta32, upd_c)
+            new_d32 = f.sub(upd_c, f.sub(new_p32, theta32))
+            return f.store(new_p32), m, v, f.store(new_d32), w, upd32, new_p32 - theta32
+        # Collage light/plus: Grow Δθ into the (θ, δθ) expansion; Δθ̂ taken
+        # componentwise (each difference f32-exact)
+        e = mcf.grow(Expansion(p, d), f.store(upd16_32))
+        eff = (f.load(e.hi) - theta32) + (f.load(e.lo) - f.load(d))
+        return e.hi, m, v, e.lo, w, upd32, eff
+
+    def _wd_term(self, theta32):
+        if self.policy.wd_mode == "fused":
+            return _host(self.wd) * theta32
+        return torch.zeros_like(theta32)
+
+    def _maybe_pt_decay(self, theta32, lr, f):
+        # App. D Eq. 4: separate PyTorch-style decay θ·(1−αλ); in bf16 the
+        # factor rounds to 1.0 whenever αλ < 2⁻⁹, a silent no-op
+        if self.policy.wd_mode == "pytorch" and self.wd:
+            factor = f.rn(_host(1.0) - lr * _host(self.wd))
+            return f.mul(theta32, factor)
+        return theta32
+
+    @staticmethod
+    def _leaf_partials(g, u, e) -> tuple:
+        """Raw metric partials of one leaf (⟨Δθ,Δθ̂⟩, ‖Δθ‖², ‖Δθ̂‖², #lost,
+        ‖g‖²): the first four from the EDQ kernel (its plain version on the
+        CPU), ‖g‖² from a torch sum."""
+        p = kedq.edq_partials(u.reshape(-1), e.reshape(-1))
+        g32 = g.to(F32)
+        return (p[0], p[1], p[2], p[3], torch.sum(g32 * g32))
+
+
+def _host(x) -> torch.Tensor:
+    """A host value rounded to f32, as a 0-dim CPU tensor: exact, and an
+    operand of CUDA ops by value (a device copy would synchronise the host
+    with the card at every call)."""
+    return torch.tensor(float(np.float32(x)), dtype=F32)
 
 
 def bucket_state(state: CollageOptState, params: Any, layout: bucketing.BucketLayout,
@@ -172,8 +327,47 @@ def unbucket_state(bparams: bucketing.BucketedParams, bstate: bucketing.Bucketed
                                    rng=bstate.rng)
 
 
-def convert_state(*args, **kw):
-    raise NotImplementedError("convert_state: not yet ported to repro_torch")
+def convert_state(state: CollageOptState, params: Any, new_policy: PrecisionPolicy, *,
+                  sr_seed: int = 0) -> CollageOptState:
+    """Checkpoint-time precision migration: re-express an optimizer state
+    under another strategy (e.g. resume an f32-master run as Collage-plus,
+    or back). Moments are rounded or expanded; master weights and residuals
+    are rebuilt as needed; ``sr_seed`` seeds the SR stream of the migrated
+    run when the old state has none."""
+    s = new_policy.strategy
+    cdt = new_policy.param_dtype
+    tmap = bucketing.tree_map
+    val32 = lambda x: x.value(F32) if isinstance(x, Expansion) else x.to(F32)
+    m32, v32 = tmap(val32, state.m), tmap(val32, state.v)
+    if s in (Strategy.D_MINUS_MW, Strategy.D_MIXED_MW):
+        m, v = m32, v32
+    else:
+        m, v = tmap(lambda x: x.to(cdt), m32), tmap(lambda x: x.to(cdt), v32)
+    if s.uses_expansion_second_moment:
+        def expand(x32):
+            hi = x32.to(cdt)
+            return Expansion(hi, (x32 - hi.to(F32)).to(cdt))
+        v = tmap(expand, v32)
+    delta = None
+    if s.uses_expansion_params or s is Strategy.KAHAN:
+        if state.delta is not None:
+            delta = state.delta
+        elif state.master is not None:      # keep the master weights' residual in δθ
+            delta = tmap(lambda w, p: (w - p.to(F32)).to(cdt), state.master, params)
+        else:
+            delta = tmap(lambda p: torch.zeros(p.shape, dtype=cdt, device=p.device), params)
+    master = None
+    if s.uses_master_weights:
+        if state.master is not None:
+            master = state.master
+        elif state.delta is not None:
+            master = tmap(lambda p, d: p.to(F32) + d.to(F32), params, state.delta)
+        else:
+            master = tmap(lambda p: p.to(F32), params)
+    rng = None
+    if s is Strategy.SR:
+        rng = state.rng if state.rng is not None else int(sr_seed)
+    return CollageOptState(step=state.step, m=m, v=v, delta=delta, master=master, rng=rng)
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int, min_ratio: float = 0.1) -> Schedule:

@@ -10,8 +10,10 @@ never contracts a multiply and an add into an FMA, so these functions are
 bit-identical to the JAX ones; ``torch.compile`` must not be put over them
 (a fused FMA erases the roundoff the transformations keep).
 
-``stochastic_round`` (threefry noise, tree-layout SR) is not ported: the
-bucketed engine's SR uses the counter-based stream of ``core.bucketing``.
+``stochastic_round`` takes its random bits as an argument: the JAX package
+draws them from a threefry key, which the port cannot reproduce; its
+callers draw them from the counter-based stream of ``core.bucketing``
+(``sr_bits32``), the same on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.core import bucketing
 
 F32 = torch.float32
 
@@ -61,6 +65,14 @@ class StrictFPU:
 
     def div(self, a, b):
         return self.rn(a / b)
+
+
+def sqrt_rn(x32):
+    """Correctly rounded f32 square root. torch's vectorised CPU ``sqrt`` is
+    not (one ulp off on some inputs, where XLA's, numpy's and CUDA's
+    ``__fsqrt_rn`` are exact); a square root taken in f64 and rounded once to
+    f32 is correctly rounded (53 ≥ 2·24 + 2 bits)."""
+    return torch.sqrt(x32.to(torch.float64)).to(F32)
 
 
 def fpu(dtype) -> StrictFPU:
@@ -206,3 +218,25 @@ def ulp(x):
     # uint32 arithmetic of the JAX version, in int64 masked to 32 bits
     u = ((e + 127) << 23) & 0xFFFFFFFF
     return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(F32)
+
+
+def stochastic_round(x, dtype, noise):
+    """Stochastic rounding f32 → ``dtype`` (App. B): E[SR(x)] = x.
+
+    ``noise``: int64 tensor of x's shape holding 32 uniform random bits per
+    element. For bf16, the JAX bit trick: its low 16 bits are added below
+    the kept mantissa bits, then the low 16 bits are cut (equal to the JAX
+    function given ``jax.random.randint(key, shape, 0, 2**16)`` as noise).
+    Otherwise the ulp branch, with the uniform of ``jax.random.uniform``
+    made from the same 32 bits (its top 23 bits as a mantissa in [1, 2),
+    minus 1)."""
+    if dtype == torch.bfloat16:
+        return bucketing.stochastic_round_bits(x.to(F32), noise & 0xFFFF).to(torch.bfloat16)
+    f = fpu(dtype)
+    lo = f.rn(x)
+    lo = torch.where(lo > x, lo - ulp(f.store(lo)), lo)
+    gap = ulp(f.store(lo))
+    frac = (x - lo) / gap
+    uniform = ((noise >> 9) | 0x3F800000).to(torch.int32).view(F32) - 1.0
+    return f.store(torch.where(uniform < frac, lo + gap, lo))
+

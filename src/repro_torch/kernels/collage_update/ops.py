@@ -12,7 +12,8 @@ plain version on the CPU); without it, through the plain version with
 fast metric sums (``torch.sum``, equal to the tiled partials up to f32
 summation order).
 
-Not ported yet: the tree-layout shim ``fused_step``.
+``fused_step`` is the tree-layout shim: ``CollageAdamW.step`` with
+``use_fused_kernel`` runs it.
 """
 
 from __future__ import annotations
@@ -139,5 +140,21 @@ def bucketed_step(opt, grads, bparams: bucketing.BucketedParams,
     return bucketing.BucketedParams(tuple(new["theta"]), layout), new_state, metrics
 
 
-def fused_step(*args, **kw):
-    raise NotImplementedError("fused_step (tree-layout shim): not yet ported to repro_torch")
+def fused_step(opt, grads, params, state, *, scalars=None):
+    """``CollageAdamW.step`` through the bucket engine, for tree-shaped state
+    (``use_fused_kernel``): ``bucket_state`` → ``bucketed_step`` (one
+    ``collage_bucket_update`` per bucket) → ``unbucket_state``. Re-buckets
+    every call, the cost ``bucketed_step`` on persistent buckets removes. The
+    SR seed of bucket i at step t is ``fold_seed(state.rng, t, i)``, as in
+    ``bucketed_step``, so both give the same bits from the same state."""
+    from repro_torch.core.collage import bucket_state, unbucket_state
+
+    bp = opt.policy.bucketing
+    layout = bucketing.build_layout(params, max_bucket_elems=bp.max_bucket_elems,
+                                    pad_multiple=bp.pad_multiple)
+    bparams, bstate = bucket_state(state, params, layout, opt.policy,
+                                   sr_seed=state.rng if state.rng is not None else 0)
+    gbuckets = bucketing.bucket_tree(grads, layout)
+    bparams, bstate, metrics = bucketed_step(opt, gbuckets, bparams, bstate, scalars=scalars)
+    new_params, new_state = unbucket_state(bparams, bstate, opt.policy)
+    return new_params, new_state, metrics

@@ -31,14 +31,6 @@ def _rn(x):
     return x.to(torch.bfloat16).to(F32)
 
 
-def _sqrt(x):
-    """Correctly rounded f32 square root. torch's vectorised CPU ``sqrt`` is
-    not (one ulp off on some inputs, where XLA's, numpy's and CUDA's
-    ``__fsqrt_rn`` are exact); a square root taken in f64 and rounded once to
-    f32 is correctly rounded (53 ≥ 2·24 + 2 bits)."""
-    return torch.sqrt(x.to(torch.float64)).to(F32)
-
-
 def _rn_host(x) -> float:
     """bf16 round-to-nearest-even of a host f32 value."""
     return float(torch.tensor(np.float32(x), dtype=F32).to(torch.bfloat16).to(F32))
@@ -102,12 +94,12 @@ def collage_bucket_update_plain(state: dict, g, lr, bc1, bc2, seed=None, elem_of
         vhat = v_new / bc2_t
         if strategy == "D":
             w = state["master"]
-            upd32 = -lr_t * (mhat / (_sqrt(vhat) + k["eps"]) + k["wd_upd"] * w)
+            upd32 = -lr_t * (mhat / (mcf.sqrt_rn(vhat) + k["eps"]) + k["wd_upd"] * w)
             w_new = w + upd32
             new_p32 = _rn(w_new)
             new["master"] = w_new
         else:
-            upd32 = -lr_t * (mhat / (_sqrt(vhat) + k["eps"]) + k["wd_upd"] * theta32)
+            upd32 = -lr_t * (mhat / (mcf.sqrt_rn(vhat) + k["eps"]) + k["wd_upd"] * theta32)
             new_p32 = _rn(theta32 + _rn(upd32))
         eff = new_p32 - theta32
         new["theta"] = new_p32.to(torch.bfloat16)
@@ -127,7 +119,7 @@ def collage_bucket_update_plain(state: dict, g, lr, bc1, bc2, seed=None, elem_of
             new["vhi"] = vhi_new.to(torch.bfloat16)
         new["m"] = m32.to(torch.bfloat16)
         mhat = m32 / bc1_t
-        upd32 = -lr_t * (mhat / (_sqrt(vhat) + k["eps"]) + k["wd_upd"] * theta32)
+        upd32 = -lr_t * (mhat / (mcf.sqrt_rn(vhat) + k["eps"]) + k["wd_upd"] * theta32)
         upd16 = _rn(upd32)
 
         if strategy == "A":

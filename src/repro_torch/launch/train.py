@@ -7,12 +7,17 @@ path: builds the model, the Collage optimizer and the train step, and runs
       --seq-len 512 --batch 8 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-tiny --smoke \\
       --device cpu --steps 3 --bucketed --seq-len 32 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-125m \\
+      --precision D --flash-min-len 256 --seq-len 512 --batch 8 --steps 8
 
-``--device`` defaults to ``cuda`` and raises without a card. On the card,
-``--bucketed --fused-kernel`` runs the CUDA Collage update (one launch per
-bucket per step) and ``--flash-min-len N`` the flash forward and backward
-kernels for sequences of at least N; on the CPU the same flags run the
-kernels' plain versions.
+``--device`` defaults to ``cuda`` and raises without a card. Without
+``--bucketed`` the tree layout steps each leaf on its own, under any
+``--precision`` (A, B, C, KAHAN, SR, D-MW, D), with each leaf's EDQ
+partials from the CUDA EDQ kernel; ``--fused-kernel`` runs the CUDA Collage
+update instead (one launch per bucket per step; on the tree layout the
+buckets are rebuilt every step). ``--flash-min-len N`` runs the flash
+forward and backward kernels for sequences of at least N. On the CPU the
+same flags run the kernels' plain versions.
 
 Not ported yet (each raises a "not yet ported" error): ``--resume``,
 checkpointing (``--ckpt-every``), ``--dp`` > 1, ``--zero``,

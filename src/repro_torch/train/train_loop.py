@@ -8,7 +8,8 @@ bucket tensors, marks them ``requires_grad``, and computes the loss against
 bucket — so ``torch.autograd.grad`` returns ONE flat gradient per bucket and
 the optimizer step runs with no flatten or concatenation
 ("differentiate w.r.t. buckets"). The tree layout computes gradients as a
-nested dict; its optimizer step is not ported yet and raises.
+nested dict and steps with ``CollageAdamW.step`` (per leaf, or through the
+fused shim with ``use_fused_kernel``).
 
 The step function mutates nothing: it returns a new ``TrainState`` (the
 optimizer's update is functional, as the JAX package's).

@@ -125,3 +125,72 @@ def test_bwd_wrappers_raise_on_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         tflash.flash_bwd_dq(q, q, q, lse[..., :8], q)
     assert (tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches) == before
+
+
+def _edq_inputs(n, seed):
+    """u, e on the card with lost elements (e == 0 where u != 0), exact
+    zeros in both, and mixed signs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn((n,), generator=g, device="cuda") * 1e-3
+    e = u * (1 + 0.01 * torch.randn((n,), generator=g, device="cuda"))
+    pick = torch.rand((n,), generator=g, device="cuda")
+    e = torch.where(pick < 0.1, torch.zeros_like(e), e)            # lost
+    u = torch.where((pick > 0.95) & (pick < 0.97), torch.zeros_like(u), u)   # u == 0
+    e = torch.where(pick > 0.99, -e, e)                            # sign flips
+    return u.contiguous(), e.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 1000, 128 * 77, 16384 * 3 + 7, 7_077_888])
+def test_edq_kernel_matches_plain_on_card(n):
+    _card()
+    from repro_torch.kernels.edq import edq as kedq
+    from repro_torch.kernels.edq import ref
+
+    u, e = _edq_inputs(n, n)
+    before = kedq.edq_partials.launches
+    got = kedq.edq_partials(u, e)
+    want = ref.edq_partials_plain(u, e)
+    torch.cuda.synchronize()
+    assert kedq.edq_partials.launches == before + 1
+    # chip_smoke.py states the reasons for these tolerances
+    scale = (u * e).abs().sum()
+    assert abs(float(got[0] - want[0])) <= 1e-5 * float(scale)
+    torch.testing.assert_close(got[1:3], want[1:3], rtol=1e-5, atol=0)
+    assert float(got[3]) == float(want[3])
+    # an input that is not 16-byte aligned takes the same elements in order
+    if n > 8:
+        u2, e2 = torch.empty(n + 1, device="cuda"), torch.empty(n + 1, device="cuda")
+        u2[1:], e2[1:] = u, e
+        assert torch.equal(kedq.edq_partials(u2[1:], e2[1:]), got)
+
+
+@pytest.mark.cuda
+def test_edq_wrapper_raises_on_what_the_kernel_does_not_take():
+    _card()
+    from repro_torch.kernels.edq import edq as kedq
+
+    u = torch.ones(256, device="cuda")
+    before = kedq.edq_partials.launches
+    with pytest.raises(TypeError):
+        kedq.edq_partials(u.to(torch.bfloat16), u.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        kedq.edq_partials(u, u[:128])
+    with pytest.raises(ValueError):
+        kedq.edq_partials(u.reshape(16, 16), u.reshape(16, 16))
+    with pytest.raises(ValueError):
+        kedq.edq_partials(u[::2], u[::2])
+    with pytest.raises(ValueError):
+        kedq.edq_partials(u, u.cpu())
+    assert kedq.edq_partials.launches == before
+
+
+@pytest.mark.cuda
+def test_edq_kernel_lost_count_exact_past_2_24():
+    _card()
+    from repro_torch.kernels.edq import edq as kedq
+
+    n = 2**24 + 6
+    got = kedq.edq_partials(torch.ones(n, device="cuda"), torch.zeros(n, device="cuda"))
+    torch.cuda.synchronize()
+    assert float(got[3]) == float(torch.tensor(float(n), dtype=torch.float32))

@@ -1,6 +1,6 @@
 """Import guard: the port and chip_smoke.py import nothing of JAX, ml_dtypes
-or the JAX package, and the port serves and trains with JAX made
-unimportable."""
+or the JAX package, and the port serves and trains (bucketed and on the
+tree layout) with JAX made unimportable."""
 
 import ast
 import os
@@ -58,6 +58,10 @@ def test_port_serves_with_jax_unimportable():
         hist = train.main(["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
                            "--batch", "2", "--bucketed", "--fused-kernel",
                            "--flash-min-len", "8", "--log-every", "1"])
+        assert len(hist) == 2 and hist[-1]["edq"] > 0, hist
+        hist = train.main(["--smoke", "--device", "cpu", "--steps", "2", "--seq-len", "16",
+                           "--batch", "2", "--precision", "SR", "--flash-min-len", "8",
+                           "--log-every", "1"])          # the tree layout
         assert len(hist) == 2 and hist[-1]["edq"] > 0, hist
         assert not any(m.split(".")[0] in ("jax", "ml_dtypes") for m in sys.modules
                        if sys.modules[m] is not None)
