@@ -20,20 +20,31 @@
 // kernel to the other and writes dQ, dK, dV: ~45 MB, ~14 us at 3.35 TB/s,
 // while its seven products over the 12.6 M valid (q, k) pairs (S and dP
 // twice in the dQ kernel) are ~11 GFLOP, ~11 us at 989 TFLOP/s. So bytes
-// bound it, as the forward; the design's job is to stream tiles through
+// bound it, as the forward; the designs' job is to stream tiles through
 // shared memory and never write scores or probabilities to device memory.
 //
-// Design (simple first, the forward's tile and fragment layout):
+// dQ kernel (the forward's structure; tile_ring.cuh):
+//  * one block of one warpgroup per (64-query tile, head, batch), grid
+//    (B * H, query tiles) heaviest tile first; Q and dO stay in shared
+//    memory;
+//  * both sweeps over the K/V band (pass 1: D = sum_k p dp; pass 2: dS =
+//    p (dp - D), dQ += dS K) run through one 3-stage cp.async ring, pass
+//    2's first tiles loading while pass 1 ends (one (b, h)'s K and V are
+//    128 KB: pass 2 reads them from L2);
+//  * S = Q K^T and dP = dO V^T are wgmma with both operands in shared
+//    memory; dQ += dS K is wgmma with dS from registers and K read down its
+//    rows through a transposed descriptor (no transposed copy of K);
+//  * p = 2^(s * log2(e) / sqrt(dh) - lse * log2(e)) is one FFMA and one
+//    ex2.approx; only edge tiles take the element mask.
+//
+// dK/dV kernel (mma.sync tiles with padded rows):
 //  * 64 x 64 tiles, 4 warps per block, each warp owns 16 rows of the
 //    block's own tile; products are mma.sync.m16n8k16 bf16 with f32
 //    accumulators; P and dS are rounded to bf16 only as A operands;
-//  * dQ kernel: one block per (64-query tile, head, batch); streams the K
-//    and V tiles the causal/window band reaches twice: first for D (a quad
-//    shuffle sums each row), then for dS.K (K also stored transposed);
-//  * dK/dV kernel: one block per (64-key tile, kv head, batch); loops over
-//    the GQA group's query heads and, for each, over the query tiles the
-//    band reaches (from _dkv_kernel: lo = first tile at or after the key
-//    tile when causal, hi = the tile of the last query inside the window),
+//  * one block per (64-key tile, kv head, batch); loops over the GQA
+//    group's query heads and, for each, over the query tiles the band
+//    reaches (from _dkv_kernel: lo = first tile at or after the key tile
+//    when causal, hi = the tile of the last query inside the window),
 //    accumulating in registers: no atomics, so results are deterministic;
 //    works on transposed scores (keys as rows), with Q and dO also stored
 //    transposed for the P^T.dO and dS^T.Q products;
@@ -45,9 +56,7 @@
 // C entries: flash_bwd_dq_bf16(...), flash_bwd_dkv_bf16(...) return
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_ring.cuh"
 
 namespace {
 
@@ -153,6 +162,53 @@ __device__ __forceinline__ bool masked(int qpos, int kpos, int L, int causal, in
 }
 
 // ------------------------------------------------------------------ dQ --
+namespace dqk {
+
+// using-declarations, not a using-directive: the dK/dV helpers above share
+// some of these names, and a directive's names would lose to theirs
+using flash::band;
+using flash::bf16;
+using flash::cp_async_commit;
+using flash::cp_async_wait;
+using flash::edge_tile;
+using flash::ex2;
+using flash::LOG2E;
+using flash::load_tile_async;
+using flash::fence_async_smem;
+using flash::masked;
+using flash::NEG_INF;
+using flash::NSTAGE;
+using flash::NTHREADS;
+using flash::query_tile;
+using flash::smem_base;
+using flash::store_rows;
+using flash::TILE;
+using flash::tile_bytes;
+using flash::wg_abt;
+using flash::wg_commit;
+using flash::wg_fence;
+using flash::wg_pv;
+using flash::wg_touch;
+using flash::wg_wait;
+
+// p = exp2(s * scale_log2 - lse2) in place; on an edge tile masked pairs
+// give exactly 0 (a row with LSE = +1e30 gives 0 everywhere by itself).
+template <bool EDGE>
+__device__ __forceinline__ void probs(float s[TILE / 8][4], float scale_log2, const float lse2[2],
+                                      int k0, int t4, const int qpos[2], int L, int causal,
+                                      int window) {
+#pragma unroll
+    for (int nt = 0; nt < TILE / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + nt * 8 + t4 * 2 + (e & 1);
+            s[nt][e] = EDGE && masked(qpos[e >> 1], kpos, L, causal, window)
+                           ? 0.f
+                           : ex2(fmaf(s[nt][e], scale_log2, -lse2[e >> 1]));
+        }
+    }
+}
+
 template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -160,120 +216,122 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     bf16* __restrict__ dq, int H, int Hkv, int L, int causal, int window,
                     float scale) {
-    constexpr int RS = DH + PAD;
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem);     // [BM][RS]
-    bf16* dOs = Qs + BM * RS;                      // [BM][RS]
-    bf16* Ks = dOs + BM * RS;                      // [BN][RS]
-    bf16* Vs = Ks + BN * RS;                       // [BN][RS]
-    bf16* Kt = Vs + BN * RS;                       // [DH][TS]
+    constexpr uint32_t TB = tile_bytes<DH>();
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    const uint32_t Qs = smem_base(smem_raw);         // [Q][dO][K0 V0][K1 V1][K2 V2]
+    const uint32_t dOs = Qs + TB;
 
-    const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+    const int nq = (L + TILE - 1) / TILE;
+    const int q0 = query_tile(blockIdx.y, nq, causal) * TILE;
+    const int h = blockIdx.x % H, b = blockIdx.x / H;
     const int hk = h / (H / Hkv);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const size_t q_base = (size_t)(b * H + h) * L * DH;
-    const size_t kv_base = (size_t)(b * Hkv + hk) * L * DH;
     const size_t row_base = (size_t)(b * H + h) * L;
+    const bf16* kb = k + (size_t)(b * Hkv + hk) * L * DH;
+    const bf16* vb = v + (size_t)(b * Hkv + hk) * L * DH;
     const float scale_log2 = scale * LOG2E;
 
-    load_tile<DH>(Qs, nullptr, q + q_base, q0, L, tid);
-    load_tile<DH>(dOs, nullptr, dout + q_base, q0, L, tid);
+    // Two sweeps over the band, one ring: step j < n is pass 1's tile
+    // lo + j, step j >= n pass 2's tile lo + j - n (its first tiles load
+    // while pass 1 ends; one (b, h)'s K and V are in L2 by then).
+    int lo, hi;
+    band(q0, L, causal, window, lo, hi);
+    const int n = hi - lo;
+    auto fetch = [&](int j) {
+        const uint32_t st = Qs + TB * (2 + 2 * (j % NSTAGE));
+        const int k0 = (lo + (j < n ? j : j - n)) * TILE;
+        load_tile_async<DH>(st, kb, k0, L, tid);
+        load_tile_async<DH>(st + TB, vb, k0, L, tid);
+    };
+
+    // Q and dO join the first key tile's group
+    load_tile_async<DH>(Qs, q + q_base, q0, L, tid);
+    load_tile_async<DH>(dOs, dout + q_base, q0, L, tid);
+#pragma unroll
+    for (int j = 0; j < NSTAGE - 1; ++j) {
+        if (j < 2 * n) fetch(j);
+        cp_async_commit();
+    }
+
     const int r0 = warp * 16 + g;
     const int qpos[2] = {q0 + r0, q0 + r0 + 8};
     float lse2[2], dl[2] = {0.f, 0.f};
 #pragma unroll
     for (int row = 0; row < 2; ++row)
         lse2[row] = qpos[row] < L ? lse[row_base + qpos[row]] * LOG2E : -NEG_INF;
-
-    const int nk = (L + BN - 1) / BN;
-    const int hi = causal ? min(nk, (q0 + BM + BN - 1) / BN) : nk;
-    const int lo = window ? max(q0 - window + 1, 0) / BN : 0;
-
-    // Pass 1: D = sum_k p dp over the band, from the same f32 p and dp that
-    // pass 2 forms dS with, so each row of dS sums to zero up to f32 rounding.
-    // (rowsum(dO * O) over the bf16-rounded O shifts a whole row of dS by p
-    // times O's rounding error; where the true dS is small, in trained
-    // layers, that shift dominates dQ and dK.)
-    for (int kt = lo; kt < hi; ++kt) {
-        const int k0 = kt * BN;
-        __syncthreads();
-        load_tile<DH>(Ks, nullptr, k + kv_base, k0, L, tid);
-        load_tile<DH>(Vs, nullptr, v + kv_base, k0, L, tid);
-        __syncthreads();
-
-        float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-        mma_abt<DH>(s, Qs, Ks, r0, g, t4);      // S = Q K^T
-        mma_abt<DH>(dp, dOs, Vs, r0, g, t4);    // dP = dO V^T
-#pragma unroll
-        for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int row = e >> 1;
-                const int kpos = k0 + nt * 8 + t4 * 2 + (e & 1);
-                if (!masked(qpos[row], kpos, L, causal, window))
-                    dl[row] += exp2f(s[nt][e] * scale_log2 - lse2[row]) * dp[nt][e];
-            }
-        }
-    }
-    // the four lanes of a quad (t4 = 0..3) hold the columns of the same rows
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-        dl[row] += __shfl_xor_sync(0xffffffffu, dl[row], 1);
-        dl[row] += __shfl_xor_sync(0xffffffffu, dl[row], 2);
-        if (t4 == 0 && qpos[row] < L) delta[row_base + qpos[row]] = dl[row];
-    }
-
     float acc[DH / 8][4];
 #pragma unroll
     for (int nd = 0; nd < DH / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
 
-    // Pass 2: dQ = scale * sum_k dS K
-    for (int kt = lo; kt < hi; ++kt) {
-        const int k0 = kt * BN;
+    for (int j = 0; j < 2 * n; ++j) {
+        cp_async_wait<NSTAGE - 2>();
+        fence_async_smem();
         __syncthreads();
-        load_tile<DH>(Ks, Kt, k + kv_base, k0, L, tid);
-        load_tile<DH>(Vs, nullptr, v + kv_base, k0, L, tid);
-        __syncthreads();
-
-        float s[BN / 8][4], dp[BN / 8][4];
+        if (j + NSTAGE - 1 < 2 * n) fetch(j + NSTAGE - 1);
+        cp_async_commit();
+        if (j == n) {
+            // Pass 1 is done: D = sum_k p dp over the band, from the same f32
+            // p and dp that pass 2 forms dS with, so each row of dS sums to
+            // zero up to f32 rounding. (rowsum(dO * O) over the bf16-rounded
+            // O shifts a whole row of dS by p times O's rounding error; where
+            // the true dS is small, in trained layers, that shift dominates
+            // dQ and dK.) The four lanes of a quad hold the same rows.
 #pragma unroll
-        for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-        mma_abt<DH>(s, Qs, Ks, r0, g, t4);      // S = Q K^T
-        mma_abt<DH>(dp, dOs, Vs, r0, g, t4);    // dP = dO V^T
-
-        // ds = p (dp - D), p = exp(s - lse); masked pairs give exactly 0
-#pragma unroll
-        for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int row = e >> 1;
-                const int kpos = k0 + nt * 8 + t4 * 2 + (e & 1);
-                const float p = masked(qpos[row], kpos, L, causal, window)
-                                    ? 0.f
-                                    : exp2f(s[nt][e] * scale_log2 - lse2[row]);
-                s[nt][e] = p * (dp[nt][e] - dl[row]);
+            for (int row = 0; row < 2; ++row) {
+                dl[row] += __shfl_xor_sync(0xffffffffu, dl[row], 1);
+                dl[row] += __shfl_xor_sync(0xffffffffu, dl[row], 2);
+                if (t4 == 0 && qpos[row] < L) delta[row_base + qpos[row]] = dl[row];
             }
         }
-        mma_pb<DH>(acc, s, Kt, g, t4);          // dQ += dS K
+        const uint32_t Ks = Qs + TB * (2 + 2 * (j % NSTAGE));
+        const int k0 = (lo + (j < n ? j : j - n)) * TILE;
+
+        float s[TILE / 8][4], dp[TILE / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < TILE / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        wg_fence();
+        wg_abt<DH>(s, Qs, Ks);                           // S = Q K^T
+        wg_abt<DH>(dp, dOs, Ks + TB);                    // dP = dO V^T
+        wg_commit();
+        wg_wait<0>();
+        wg_touch<TILE / 2>(&s[0][0]);
+        wg_touch<TILE / 2>(&dp[0][0]);
+        if (edge_tile(q0, k0, L, causal, window))
+            probs<true>(s, scale_log2, lse2, k0, t4, qpos, L, causal, window);
+        else
+            probs<false>(s, scale_log2, lse2, k0, t4, qpos, L, causal, window);
+
+        if (j < n) {
+#pragma unroll
+            for (int nt = 0; nt < TILE / 8; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) dl[e >> 1] += s[nt][e] * dp[nt][e];
+        } else {
+            // dS = p (dp - D); dQ += dS K, K read transposed from its tile
+#pragma unroll
+            for (int nt = 0; nt < TILE / 8; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[nt][e] *= dp[nt][e] - dl[e >> 1];
+            uint32_t pa[TILE / 16][4];
+#pragma unroll
+            for (int kk = 0; kk < TILE / 16; ++kk) flash::a_frag(pa[kk], s, kk);
+            wg_fence();
+            wg_pv<DH>(acc, pa, Ks);
+            wg_commit();
+            wg_wait<0>();
+            wg_touch<DH / 2>(&acc[0][0]);
+        }
     }
 
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-        if (qpos[row] >= L) continue;
-        bf16* out = dq + q_base + (size_t)qpos[row] * DH;
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; ++nd)
-            *reinterpret_cast<uint32_t*>(out + nd * 8 + t4 * 2) =
-                pack_bf16(acc[nd][2 * row] * scale, acc[nd][2 * row + 1] * scale);
-    }
+    const float mul[2] = {scale, scale};
+    store_rows<DH>(acc, mul, Qs, dq + q_base, q0, L, warp, lane);
 }
+
+}  // namespace dqk
 
 // --------------------------------------------------------------- dK/dV --
 template <int DH>
@@ -377,13 +435,13 @@ template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, void* delta, void* dq, int B, int H, int Hkv, int L,
                       int causal, int window, cudaStream_t stream) {
-    constexpr size_t smem = sizeof(bf16) * (size_t)(4 * BM * (DH + PAD) + DH * TS);
-    static_assert(BM == BN, "the block's tile and the streamed tiles share one row stride");
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH>,
+    // Q, dO and the ring's K and V tiles
+    constexpr size_t smem = (size_t)flash::tile_bytes<DH>() * (2 + 2 * flash::NSTAGE);
+    cudaError_t err = cudaFuncSetAttribute(dqk::flash_bwd_dq_kernel<DH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((L + BM - 1) / BM, H, B);
-    flash_bwd_dq_kernel<DH><<<grid, NTHREADS, smem, stream>>>(
+    const dim3 grid(B * H, (L + flash::TILE - 1) / flash::TILE);
+    dqk::flash_bwd_dq_kernel<DH><<<grid, flash::NTHREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
         static_cast<float*>(delta), static_cast<bf16*>(dq), H, Hkv, L, causal, window,
@@ -422,7 +480,9 @@ bool bad_args(int B, int H, int Hkv, int L, int window) {
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, void* delta, void* dq, int B, int H,
                                  int Hkv, int L, int dh, int causal, int window, void* stream) {
-    if (bad_args(B, H, Hkv, L, window)) return (int)cudaErrorInvalidValue;
+    if (bad_args(B, H, Hkv, L, window) || (long long)B * H > 0x7fffffffLL ||
+        (L + flash::TILE - 1) / flash::TILE > 65535)    // grid (B * H, query tiles)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dh) {
         case 64: return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, L, causal,

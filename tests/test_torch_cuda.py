@@ -11,6 +11,20 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention as tflash
 
 
+# (B, H, Hkv, L, dh, causal, window) where the flash kernels' K/V ring,
+# heavy-first tile order and edge masks meet their corner cases
+RING_SHAPES = [
+    (2, 4, 4, 100, 64, True, 0),         # L not a multiple of 64
+    (2, 4, 4, 40, 64, True, 0),          # L below one tile
+    (1, 4, 2, 2048, 64, True, 0),        # 32 query tiles: the ring wraps, heavy-first order
+    (2, 4, 4, 512, 64, True, 16),        # window narrower than one tile
+    (2, 4, 4, 190, 64, True, 16),        # ... with a ragged edge
+    (2, 12, 4, 512, 64, True, 0),        # GQA 12 / 4
+    (2, 4, 4, 512, 128, True, 0),        # dh 128
+    (2, 4, 4, 130, 128, False, 0),       # dh 128, not causal, ragged
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,L,dh,causal,window", [
     (8, 12, 12, 512, 64, True, 0),       # gpt-125m serving shape
@@ -19,6 +33,7 @@ from repro_torch.kernels.flash_attention import flash_attention as tflash
     (2, 4, 2, 300, 64, True, 0),         # odd L
     (1, 4, 4, 5, 64, True, 0),           # L below one tile
     (2, 4, 2, 200, 64, False, 48),       # non-causal + window
+    *RING_SHAPES,
 ])
 def test_kernel_matches_plain_on_card(B, H, Hkv, L, dh, causal, window):
     if not torch.cuda.is_available():
@@ -64,6 +79,7 @@ def _card():
     (2, 4, 2, 300, 64, True, 64),        # odd L + window
     (1, 4, 4, 5, 64, True, 0),           # L below one tile
     (2, 4, 2, 200, 64, False, 48),       # non-causal + window
+    *RING_SHAPES,
 ])
 def test_flash_bwd_kernels_match_plain_on_card(B, H, Hkv, L, dh, causal, window):
     _card()
