@@ -37,22 +37,27 @@
 //  * p = 2^(s * log2(e) / sqrt(dh) - lse * log2(e)) is one FFMA and one
 //    ex2.approx; only edge tiles take the element mask.
 //
-// dK/dV kernel (mma.sync tiles with padded rows):
-//  * 64 x 64 tiles, 4 warps per block, each warp owns 16 rows of the
-//    block's own tile; products are mma.sync.m16n8k16 bf16 with f32
-//    accumulators; P and dS are rounded to bf16 only as A operands;
-//  * one block per (64-key tile, kv head, batch); loops over the GQA
-//    group's query heads and, for each, over the query tiles the band
-//    reaches (from _dkv_kernel: lo = first tile at or after the key tile
-//    when causal, hi = the tile of the last query inside the window),
-//    accumulating in registers: no atomics, so results are deterministic;
-//    works on transposed scores (keys as rows), with Q and dO also stored
-//    transposed for the P^T.dO and dS^T.Q products;
-//  * the ragged edge is masked in the kernel (rows and keys >= L read as
-//    zeros, are masked, and are never stored), so any L runs unpadded;
-//  * rows of shared-memory tiles are padded by 8 elements so fragment
-//    loads hit 32 distinct banks.
-//
+// dK/dV kernel (the dQ kernel's pieces, transposed: keys are the rows):
+//  * one block of one warpgroup per (64-key tile, kv head, batch), grid
+//    (B * Hkv, key tiles) with key tile 0, whose causal band is the
+//    longest, first across the whole grid; K and V stay in shared memory;
+//  * a 3-stage cp.async ring streams the band's (query head of the GQA
+//    group, query tile) steps: a Q tile, a dO tile and the tile's 64 LSE
+//    and 64 D values a stage (the query tiles: from the diagonal when
+//    causal, up to the window's last query; as the TPU kernel's loop);
+//  * S^T = K Q^T and dP^T = V dO^T are wgmma with both operands in shared
+//    memory (K, V as A; Q, dO as the K-major B); dV += P^T dO and dK +=
+//    dS^T Q are wgmma with P^T and dS^T from registers and dO, Q read
+//    down their rows through the transposed descriptor: no transposed
+//    copy of any tile;
+//  * p = 2^(s * log2(e) / sqrt(dh) - lse * log2(e)) is one FFMA and one
+//    ex2.approx with each thread's LSE and D read for its own query
+//    columns; only edge tiles take the element mask (which also masks the
+//    zero-filled query rows past L, summed over here);
+//  * the GQA sum stays in the block's registers (no atomics: results are
+//    deterministic); dK (x scale) and dV leave through the K and V tiles
+//    as 16-byte stores.
+
 // C entries: flash_bwd_dq_bf16(...), flash_bwd_dkv_bf16(...) return
 // cudaGetLastError() after the launch.
 
@@ -60,112 +65,6 @@
 
 namespace {
 
-constexpr int BM = 64;         // rows of the block's own tile
-constexpr int BN = 64;         // rows of each streamed tile
-constexpr int NWARPS = BM / 16;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int PAD = 8;
-constexpr int TS = BN + PAD;   // row stride of a transposed tile
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                               uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 rows from r0 - g, 16 columns from ks * 16) of a row-major tile
-__device__ __forceinline__ void ld_a(uint32_t a[4], const bf16* t, int stride, int r0, int ks,
-                                     int t4) {
-    const int c = ks * 16 + t4 * 2;
-    a[0] = ld_pair(t + r0 * stride + c);
-    a[1] = ld_pair(t + (r0 + 8) * stride + c);
-    a[2] = ld_pair(t + r0 * stride + c + 8);
-    a[3] = ld_pair(t + (r0 + 8) * stride + c + 8);
-}
-
-// acc (16 x 64 per warp) += A (16 x DH, row-major tile `a`) . B^T where B
-// is the row-major tile `b` (64 x DH): the S = Q K^T pattern.
-template <int DH>
-__device__ __forceinline__ void mma_abt(float acc[BN / 8][4], const bf16* a, const bf16* b,
-                                        int r0, int g, int t4) {
-    constexpr int RS = DH + PAD;
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-        uint32_t af[4];
-        ld_a(af, a, RS, r0, ks, t4);
-#pragma unroll
-        for (int nt = 0; nt < BN / 8; ++nt) {
-            const bf16* br = b + (nt * 8 + g) * RS + ks * 16 + t4 * 2;
-            mma_bf16_16816(acc[nt], af, ld_pair(br), ld_pair(br + 8));
-        }
-    }
-}
-
-// acc (16 x DH per warp) += P (16 x 64, the C fragments `p`, rounded to
-// bf16) . B where B (64 x DH) is given transposed in `bt` (DH x 64).
-template <int DH>
-__device__ __forceinline__ void mma_pb(float acc[DH / 8][4], float p[BN / 8][4],
-                                       const bf16* bt, int g, int t4) {
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-        pa[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-        pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-        pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; ++nd) {
-            const bf16* br = bt + (nd * 8 + g) * TS + kk * 16 + t4 * 2;
-            mma_bf16_16816(acc[nd], pa, ld_pair(br), ld_pair(br + 8));
-        }
-    }
-}
-
-// Copy rows [r0, r0 + 64) of a (L, DH) matrix into a row-major tile (and,
-// when `tt` is not null, its transpose); rows >= L read as zeros.
-template <int DH>
-__device__ __forceinline__ void load_tile(bf16* t, bf16* tt, const bf16* __restrict__ src,
-                                          int r0, int L, int tid) {
-    constexpr int RS = DH + PAD;
-    constexpr int CH = DH / 8;
-    for (int i = tid; i < BN * CH; i += NTHREADS) {
-        const int r = i / CH, c = (i % CH) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + r < L) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * DH + c);
-        *reinterpret_cast<uint4*>(t + r * RS + c) = val;
-        if (tt) {
-            const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) tt[(c + j) * TS + r] = e[j];
-        }
-    }
-}
-
-__device__ __forceinline__ bool masked(int qpos, int kpos, int L, int causal, int window) {
-    return qpos >= L || kpos >= L || (causal && kpos > qpos) || (window && kpos <= qpos - window);
-}
-
-// ------------------------------------------------------------------ dQ --
-namespace dqk {
-
-// using-declarations, not a using-directive: the dK/dV helpers above share
-// some of these names, and a directive's names would lose to theirs
 using flash::band;
 using flash::bf16;
 using flash::cp_async_commit;
@@ -176,6 +75,12 @@ using flash::LOG2E;
 using flash::load_tile_async;
 using flash::fence_async_smem;
 using flash::masked;
+using flash::masked_kv;
+using flash::cp_async4;
+using flash::edge_tile_kv;
+using flash::key_band;
+using flash::key_tile;
+using flash::a_frag;
 using flash::NEG_INF;
 using flash::NSTAGE;
 using flash::NTHREADS;
@@ -331,9 +236,35 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     store_rows<DH>(acc, mul, Qs, dq + q_base, q0, L, warp, lane);
 }
 
-}  // namespace dqk
-
 // --------------------------------------------------------------- dK/dV --
+
+// Transposed probabilities of one step in place: s (S^T: keys as rows,
+// queries as columns) becomes p and dp (dP^T) becomes dS^T = p (dp - D),
+// with LSE and D read for the thread's own query columns nt * 8 + t4 * 2 +
+// (e & 1) from the stage's rows; on an edge tile masked pairs and query
+// rows past L give exactly 0.
+template <bool EDGE>
+__device__ __forceinline__ void probs_t(float s[TILE / 8][4], float dp[TILE / 8][4],
+                                        const float* lse_s, const float* d_s, float scale_log2,
+                                        int q0, int t4, const int kpos[2], int L, int causal,
+                                        int window) {
+#pragma unroll
+    for (int nt = 0; nt < TILE / 8; ++nt) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + nt * 8 + t4 * 2);
+        const float2 d2 = *reinterpret_cast<const float2*>(d_s + nt * 8 + t4 * 2);
+        const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E}, dd[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int qpos = q0 + nt * 8 + t4 * 2 + (e & 1);
+            const float p = EDGE && masked_kv(qpos, kpos[e >> 1], L, causal, window)
+                                ? 0.f
+                                : ex2(fmaf(s[nt][e], scale_log2, nl[e & 1]));
+            s[nt][e] = p;
+            dp[nt][e] = p * (dp[nt][e] - dd[e & 1]);
+        }
+    }
+}
+
 template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -341,94 +272,107 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int L,
                      int causal, int window, float scale) {
-    constexpr int RS = DH + PAD;
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem);     // [BM][RS]
-    bf16* Vs = Ks + BM * RS;                       // [BM][RS]
-    bf16* Qs = Vs + BM * RS;                       // [BN][RS]
-    bf16* dOs = Qs + BN * RS;                      // [BN][RS]
-    bf16* Qt = dOs + BN * RS;                      // [DH][TS]
-    bf16* dOt = Qt + DH * TS;                      // [DH][TS]
-    float* lse_s = reinterpret_cast<float*>(dOt + DH * TS);   // [BN], log2 domain
-    float* d_s = lse_s + BN;                                   // [BN]
+    static_assert(NTHREADS == 2 * TILE, "one 4-byte LSE or D copy a thread a stage");
+    constexpr uint32_t TB = tile_bytes<DH>();
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    // [K][V][Q0 dO0][Q1 dO1][Q2 dO2][LSE0 D0][LSE1 D1][LSE2 D2]
+    const uint32_t Ks = smem_base(smem_raw);
+    const uint32_t Vs = Ks + TB;
+    const uint32_t rows_s = Ks + TB * (2 + 2 * NSTAGE);
+    const float* rows = reinterpret_cast<const float*>(smem_raw + TB * (2 + 2 * NSTAGE));
 
-    const int k0 = blockIdx.x * BM, hk = blockIdx.y, b = blockIdx.z;
+    const int nk = (L + TILE - 1) / TILE;
+    const int k0 = key_tile(blockIdx.y, nk, causal) * TILE;
+    const int hk = blockIdx.x % Hkv, b = blockIdx.x / Hkv;
     const int group = H / Hkv;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const size_t kv_base = (size_t)(b * Hkv + hk) * L * DH;
     const float scale_log2 = scale * LOG2E;
 
-    load_tile<DH>(Ks, nullptr, k + kv_base, k0, L, tid);
-    load_tile<DH>(Vs, nullptr, v + kv_base, k0, L, tid);
+    // the ring's steps: (query head gi of the group, query tile lo + j % nb)
+    int lo, hi;
+    key_band(k0, L, causal, window, lo, hi);
+    const int nb = hi - lo, n = group * nb;
+    auto fetch = [&](int j) {
+        const int si = j % NSTAGE;
+        const uint32_t st = Ks + TB * (2 + 2 * si);
+        const int q0 = (lo + j % nb) * TILE;
+        const size_t row_base = (size_t)(b * H + hk * group + j / nb) * L;
+        load_tile_async<DH>(st, q + row_base * DH, q0, L, tid);
+        load_tile_async<DH>(st + TB, dout + row_base * DH, q0, L, tid);
+        const int r = tid & (TILE - 1);
+        const bool in = q0 + r < L;
+        cp_async4(rows_s + (si * 2 * TILE + tid) * 4,
+                  (tid < TILE ? lse : delta) + row_base + (in ? q0 + r : 0), in);
+    };
+
+    // K and V join the first step's group
+    load_tile_async<DH>(Ks, k + kv_base, k0, L, tid);
+    load_tile_async<DH>(Vs, v + kv_base, k0, L, tid);
+#pragma unroll
+    for (int j = 0; j < NSTAGE - 1; ++j) {
+        if (j < n) fetch(j);
+        cp_async_commit();
+    }
+
     const int r0 = warp * 16 + g;
     const int kpos[2] = {k0 + r0, k0 + r0 + 8};
-
     float ak[DH / 8][4], av[DH / 8][4];
 #pragma unroll
     for (int nd = 0; nd < DH / 8; ++nd)
 #pragma unroll
         for (int e = 0; e < 4; ++e) ak[nd][e] = av[nd][e] = 0.f;
 
-    const int nq = (L + BM - 1) / BN;
-    const int lo = causal ? k0 / BN : 0;
-    const int hi = window ? min(nq, (k0 + BM + window - 2) / BN + 1) : nq;
+    for (int j = 0; j < n; ++j) {
+        cp_async_wait<NSTAGE - 2>();
+        fence_async_smem();
+        __syncthreads();
+        if (j + NSTAGE - 1 < n) fetch(j + NSTAGE - 1);
+        cp_async_commit();
+        const int si = j % NSTAGE;
+        const uint32_t Qs = Ks + TB * (2 + 2 * si), dOs = Qs + TB;
+        const float* lse_s = rows + si * 2 * TILE;
+        const int q0 = (lo + j % nb) * TILE;
 
-    for (int gi = 0; gi < group; ++gi) {
-        const int h = hk * group + gi;
-        const size_t q_base = (size_t)(b * H + h) * L * DH;
-        const size_t row_base = (size_t)(b * H + h) * L;
-        for (int qt = lo; qt < hi; ++qt) {
-            const int q0 = qt * BN;
-            __syncthreads();
-            load_tile<DH>(Qs, Qt, q + q_base, q0, L, tid);
-            load_tile<DH>(dOs, dOt, dout + q_base, q0, L, tid);
-            for (int i = tid; i < BN; i += NTHREADS) {
-                const bool in = q0 + i < L;
-                lse_s[i] = in ? lse[row_base + q0 + i] * LOG2E : -NEG_INF;
-                d_s[i] = in ? delta[row_base + q0 + i] : 0.f;
-            }
-            __syncthreads();
+        float s[TILE / 8][4], dp[TILE / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < TILE / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        wg_fence();
+        wg_abt<DH>(s, Ks, Qs);                           // S^T = K Q^T
+        wg_abt<DH>(dp, Vs, dOs);                         // dP^T = V dO^T
+        wg_commit();
+        wg_wait<0>();
+        wg_touch<TILE / 2>(&s[0][0]);
+        wg_touch<TILE / 2>(&dp[0][0]);
+        if (edge_tile_kv(k0, q0, L, causal, window))
+            probs_t<true>(s, dp, lse_s, lse_s + TILE, scale_log2, q0, t4, kpos, L, causal, window);
+        else
+            probs_t<false>(s, dp, lse_s, lse_s + TILE, scale_log2, q0, t4, kpos, L, causal, window);
 
-            float st[BN / 8][4], dpt[BN / 8][4];
+        // dV += P^T dO, dK += dS^T Q: the A fragments packed before the fence
+        uint32_t pa[TILE / 16][4], da[TILE / 16][4];
 #pragma unroll
-            for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-            mma_abt<DH>(st, Ks, Qs, r0, g, t4);     // S^T = K Q^T
-            mma_abt<DH>(dpt, Vs, dOs, r0, g, t4);   // dP^T = V dO^T
-
-#pragma unroll
-            for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int row = e >> 1;
-                    const int qc = nt * 8 + t4 * 2 + (e & 1);
-                    const float p = masked(q0 + qc, kpos[row], L, causal, window)
-                                        ? 0.f
-                                        : exp2f(st[nt][e] * scale_log2 - lse_s[qc]);
-                    st[nt][e] = p;
-                    dpt[nt][e] = p * (dpt[nt][e] - d_s[qc]);
-                }
-            }
-            mma_pb<DH>(av, st, dOt, g, t4);         // dV += P^T dO
-            mma_pb<DH>(ak, dpt, Qt, g, t4);         // dK += dS^T Q
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+            a_frag(pa[kk], s, kk);
+            a_frag(da[kk], dp, kk);
         }
+        wg_fence();
+        wg_pv<DH>(av, pa, dOs);
+        wg_pv<DH>(ak, da, Qs);
+        wg_commit();
+        wg_wait<0>();
+        wg_touch<DH / 2>(&av[0][0]);
+        wg_touch<DH / 2>(&ak[0][0]);
     }
 
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-        if (kpos[row] >= L) continue;
-        bf16* ok = dk + kv_base + (size_t)kpos[row] * DH;
-        bf16* ov = dv + kv_base + (size_t)kpos[row] * DH;
-#pragma unroll
-        for (int nd = 0; nd < DH / 8; ++nd) {
-            *reinterpret_cast<uint32_t*>(ok + nd * 8 + t4 * 2) =
-                pack_bf16(ak[nd][2 * row] * scale, ak[nd][2 * row + 1] * scale);
-            *reinterpret_cast<uint32_t*>(ov + nd * 8 + t4 * 2) =
-                pack_bf16(av[nd][2 * row], av[nd][2 * row + 1]);
-        }
-    }
+    // every product is done: the K and V tiles carry the results out
+    __syncthreads();
+    const float mk[2] = {scale, scale}, mv[2] = {1.f, 1.f};
+    store_rows<DH>(ak, mk, Ks, dk + kv_base, k0, L, warp, lane);
+    store_rows<DH>(av, mv, Vs, dv + kv_base, k0, L, warp, lane);
 }
 
 template <int DH>
@@ -437,11 +381,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
                       int causal, int window, cudaStream_t stream) {
     // Q, dO and the ring's K and V tiles
     constexpr size_t smem = (size_t)flash::tile_bytes<DH>() * (2 + 2 * flash::NSTAGE);
-    cudaError_t err = cudaFuncSetAttribute(dqk::flash_bwd_dq_kernel<DH>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(B * H, (L + flash::TILE - 1) / flash::TILE);
-    dqk::flash_bwd_dq_kernel<DH><<<grid, flash::NTHREADS, smem, stream>>>(
+    flash_bwd_dq_kernel<DH><<<grid, flash::NTHREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
         static_cast<float*>(delta), static_cast<bf16*>(dq), H, Hkv, L, causal, window,
@@ -453,13 +397,14 @@ template <int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
                        int Hkv, int L, int causal, int window, cudaStream_t stream) {
-    constexpr size_t smem = sizeof(bf16) * (size_t)(4 * BM * (DH + PAD) + 2 * DH * TS) +
-                            sizeof(float) * 2 * BN;
+    // K, V, the ring's Q and dO tiles, and its LSE and D rows
+    constexpr size_t smem = (size_t)flash::tile_bytes<DH>() * (2 + 2 * flash::NSTAGE) +
+                            sizeof(float) * 2 * flash::TILE * flash::NSTAGE;
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<DH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((L + BM - 1) / BM, Hkv, B);
-    flash_bwd_dkv_kernel<DH><<<grid, NTHREADS, smem, stream>>>(
+    const dim3 grid(B * Hkv, (L + flash::TILE - 1) / flash::TILE);
+    flash_bwd_dkv_kernel<DH><<<grid, flash::NTHREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Hkv,
@@ -498,7 +443,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
                                   const void* lse, const void* delta, void* dk, void* dv, int B,
                                   int H, int Hkv, int L, int dh, int causal, int window,
                                   void* stream) {
-    if (bad_args(B, H, Hkv, L, window)) return (int)cudaErrorInvalidValue;
+    if (bad_args(B, H, Hkv, L, window) || (long long)B * Hkv > 0x7fffffffLL ||
+        (L + flash::TILE - 1) / flash::TILE > 65535)    // grid (B * Hkv, key tiles)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dh) {
         case 64: return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, L,

@@ -1,7 +1,8 @@
 // Shared pieces of the flash-attention kernels for Hopper (sm_90a): the
 // swizzled shared-memory tile layout, the cp.async K/V ring, the wgmma
-// products on those tiles, the causal/window band of a query tile, its
-// heavy-first order and the test for tiles that need an element mask.
+// products on those tiles, the causal/window band of a query tile (and of
+// a key tile), their heavy-first order and the tests for tiles that need
+// an element mask.
 //
 // Tile layout. Every tile is 64 rows of a row-major (L, dh) bf16 matrix,
 // stored as dh / 64 column halves of 64 rows x 128 bytes; within a half the
@@ -12,7 +13,8 @@
 // P V, K of dS K: the reduction runs down the rows, wgmma's "transposed B");
 // no tile is ever stored twice or transposed by a thread.
 //
-// The ring. NSTAGE stages of one K and one V tile each; every thread of the
+// The ring. NSTAGE stages of one K and one V tile each (for dK/dV: one Q
+// and one dO tile and the tile's LSE and D rows); every thread of the
 // block starts its share of 16-byte cp.async copies of a stage and commits
 // them as one group, and waits with cp.async.wait_group NSTAGE - 2, so tiles
 // k + 1 and k + 2 are in flight while tile k is multiplied. One
@@ -82,6 +84,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 4-byte copy (cp.async.cg takes only 16): a row's LSE or D, whose
+// addresses are 4-byte aligned only when L is ragged
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(valid ? 4 : 0));
 }
 
 template <int N>
@@ -307,6 +316,42 @@ __device__ __forceinline__ bool edge_tile(int q0, int k0, int L, int causal, int
 
 __device__ __forceinline__ bool masked(int qpos, int kpos, int L, int causal, int window) {
     return kpos >= L || (causal && kpos > qpos) || (window && kpos <= qpos - window);
+}
+
+// ---- the transpose, for dK/dV: a fixed key tile, streamed query tiles ----
+
+// The query tiles [lo, hi) that key tile [k0, k0 + TILE) reaches: from the
+// diagonal when causal, up to the tile of the last query inside the window
+// (qpos <= kpos + window - 1) when window > 0, as the TPU kernel's
+// _dkv_kernel bounds its query loop.
+__device__ __forceinline__ void key_band(int k0, int L, int causal, int window, int& lo,
+                                         int& hi) {
+    const int nq = (L + TILE - 1) / TILE;
+    lo = causal ? k0 / TILE : 0;
+    hi = window ? min(nq, (k0 + TILE + window - 2) / TILE + 1) : nq;
+}
+
+// Heavy first: causal bands only shrink as the key tile grows (the
+// diagonal starts them later; a window caps them and L cuts the last
+// ones), so rank 0 takes key tile 0; not causal, bands only grow with the
+// tile (a window ends them earlier for the first tiles), so the last.
+__device__ __forceinline__ int key_tile(int rank, int nk, int causal) {
+    return causal ? rank : nk - 1 - rank;
+}
+
+// True when some (query, key) pair of the tiles is masked or lies past L
+// on the query side: the query tile crosses L, or the pair of tiles
+// crosses the diagonal or the window's lower edge. dK and dV sum over the
+// queries, and the ring zero-fills query rows at or past L (their LSE and
+// D too), so those rows must be masked; key rows at or past L are never
+// stored. Interior tiles skip the element mask.
+__device__ __forceinline__ bool edge_tile_kv(int k0, int q0, int L, int causal, int window) {
+    return q0 + TILE > L || (causal && k0 + TILE - 1 > q0) ||
+           (window && k0 <= q0 + TILE - 1 - window);
+}
+
+__device__ __forceinline__ bool masked_kv(int qpos, int kpos, int L, int causal, int window) {
+    return qpos >= L || masked(qpos, kpos, L, causal, window);
 }
 
 }  // namespace flash

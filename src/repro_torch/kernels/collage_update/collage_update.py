@@ -5,7 +5,7 @@ the port of ``repro.kernels.collage_update.collage_update``.
 the bias-corrected AdamW update, the strategy's rule (A, B, C, KAHAN, SR,
 D⁻, D), round-to-nearest onto bf16 after every operation, and optionally
 the per-tile metric partials (``det_sum`` over each (br, 128) tile, then
-over the tiles). On a CUDA tensor it launches
+over the tiles, both on the card). On a CUDA tensor it launches
 ``csrc/collage_update/collage_update.cu`` (built on first use) or raises;
 on a CPU tensor it runs the plain version ``ref.collage_bucket_update_plain``.
 Nothing else selects the path. ``collage_bucket_update.launches`` counts
@@ -13,7 +13,9 @@ kernel launches.
 
 The update is functional, as the JAX one: new state tensors are allocated
 and the inputs are left as they were (the kernel needs outputs that do not
-alias its inputs: with large tiles it re-reads them).
+alias its inputs: with large tiles it re-reads them). ``launch`` is the
+kernel's launch alone, without the sum over the tiles: ``chip_smoke.py``
+times the two apart.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 LANES = 128       # last dim of every tile
 SUBLANES = 8
 BLOCK_ROWS = 256  # rows per tile at most
-N_PARTIALS = 8    # metrics partial row: dot, un2, en2, lost, gn2, 0, 0, 0
+N_METRICS = 5     # metric partials: dot, un2, en2, lost, gn2
+FINISH_ROWS = 2048  # the kernel's sum over the tiles ends in one block of this many rows
 
 KERNEL_SOURCE = "collage_update/collage_update.cu"
 
@@ -87,9 +90,9 @@ def _library():
 
     lib = build.load(KERNEL_SOURCE)
     fn = lib.collage_update
-    # code, n, br, pt_decay; g, 6 inputs, 6 outputs, partials, constants;
-    # seed, elem_offset; stream
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 15
+    # code, n, br, pt_decay; g, 6 inputs, 6 outputs, partials, sums,
+    # constants; seed, elem_offset; stream
+    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 16
                    + [ctypes.c_uint32] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.collage_update_error_string.argtypes = [ctypes.c_int]
@@ -117,7 +120,6 @@ def collage_bucket_update(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=N
     is a 5-tuple of f32 0-dim tensors or None. ``lr``/``bc1``/``bc2`` are
     host scalars (f32 values). ``seed`` and ``elem_offset`` (SR) index the
     counter-based noise stream bucket-globally."""
-    from repro_torch.core import bucketing
     from repro_torch.kernels.collage_update import ref
 
     _check(state, g, strategy)
@@ -128,6 +130,27 @@ def collage_bucket_update(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=N
             block_rows=block_rows, tiled_metrics=True)
     if g.device.type != "cuda":
         raise ValueError(f"collage_bucket_update: unsupported device {g.device}")
+    out, sums = launch(state, g, lr, bc1, bc2, seed, elem_offset, b1=b1, b2=b2, eps=eps, wd=wd,
+                       strategy=strategy, pt_decay=pt_decay, compute_metrics=compute_metrics,
+                       block_rows=block_rows)
+    collage_bucket_update.launches += 1
+    return out, None if sums is None else tuple(sums[i] for i in range(N_METRICS))
+
+
+def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9, b2=0.999,
+           eps=1e-8, wd=0.0, strategy="C", pt_decay=False, compute_metrics=False,
+           block_rows=BLOCK_ROWS, finish=True):
+    """The kernel's launch on CUDA tensors → ``(new_state, sums)``: sums the
+    (5,) metric sums, ``det_sum`` over the tiles of the per-tile sums (None
+    without metrics, or with ``finish=False``, which leaves out the launches
+    that sum over the tiles). Counts nothing: ``collage_bucket_update``
+    counts its own launches."""
+    from repro_torch.core import bucketing
+    from repro_torch.kernels.collage_update import ref
+
+    _check(state, g, strategy)
+    if g.device.type != "cuda":
+        raise ValueError(f"the collage_update kernel takes CUDA tensors, got {g.device}")
     if g.dtype != torch.bfloat16:
         raise TypeError(f"collage_update kernel takes bf16 gradients, got {g.dtype}")
     for f in state_fields(strategy):
@@ -149,26 +172,26 @@ def collage_bucket_update(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=N
     consts.update(lr=float(np.float32(lr)), bc1=float(np.float32(bc1)),
                   bc2=float(np.float32(bc2)))
     host = (ctypes.c_float * len(_CONSTS))(*(consts[k] for k in _CONSTS))
-    partials = torch.empty((grid, N_PARTIALS), dtype=torch.float32, device=g.device) \
-        if compute_metrics else None
+    partials = sums = None
+    if compute_metrics:
+        partials = torch.empty((N_METRICS, grid), dtype=torch.float32, device=g.device)
+        if finish:          # the 5 sums, then from 8 the scratch of the sum over the tiles
+            sums = torch.empty((8 + N_METRICS * (FINISH_ROWS + 32),), dtype=torch.float32,
+                               device=g.device)
     ptr = lambda d, f: d[f].data_ptr() if f in d else None
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.collage_update(
         KERNEL_CODE[strategy], n, br, int(bool(pt_decay)), g.data_ptr(),
         *(ptr(state, f) for f in _SLOTS), *(ptr(out, f) for f in _SLOTS),
         partials.data_ptr() if partials is not None else None,
+        sums.data_ptr() if sums is not None else None,
         ctypes.addressof(host),
         int(seed or 0) & bucketing.MASK32, int(elem_offset or 0) & bucketing.MASK32,
         stream)
     if err != 0:
         msg = lib.collage_update_error_string(err).decode()
         raise RuntimeError(f"collage_update kernel launch failed: {msg} (cudaError {err})")
-    collage_bucket_update.launches += 1
-    sums = None
-    if compute_metrics:
-        s = bucketing.det_sum(partials[:, :5], dim=0)
-        sums = tuple(s[i] for i in range(5))
-    return out, sums
+    return out, None if sums is None else sums[:N_METRICS]
 
 
 collage_bucket_update.launches = 0

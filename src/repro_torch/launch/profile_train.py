@@ -30,6 +30,8 @@ def _group(name: str) -> str:
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "collage_update"):
         if kernel in n:
             return f"{kernel} kernel"
+    if "collage_finish" in n:              # the update's sum over the tiles
+        return "collage_update kernel"
     if is_gemm(n):
         return "bf16 GEMM (cuBLAS)" if "sgemm" not in n and "f32f32" not in n \
             else "f32 GEMM (cuBLAS, CUDA cores)"

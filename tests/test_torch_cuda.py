@@ -80,6 +80,12 @@ def _card():
     (1, 4, 4, 5, 64, True, 0),           # L below one tile
     (2, 4, 2, 200, 64, False, 48),       # non-causal + window
     *RING_SHAPES,
+    # dK/dV sums over query rows that the ring zero-fills past a ragged L,
+    # across a GQA group
+    (2, 12, 4, 300, 64, True, 0),
+    (2, 12, 4, 300, 64, False, 0),
+    (2, 8, 2, 65, 128, True, 0),
+    (2, 12, 4, 190, 64, True, 100),      # GQA, ragged L, a window over two tiles
 ])
 def test_flash_bwd_kernels_match_plain_on_card(B, H, Hkv, L, dh, causal, window):
     _card()
@@ -103,11 +109,29 @@ def test_flash_bwd_kernels_match_plain_on_card(B, H, Hkv, L, dh, causal, window)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("code", ["A", "B", "C", "KAHAN", "SR", "D-", "D"])
-@pytest.mark.parametrize("n", [3 * 1024, 512 * 128])     # br 24, and br 256 (two passes)
+@pytest.mark.parametrize("n", [
+    3 * 1024, 512 * 128,                 # br 24 and br 256 (two passes): one block a tile
+    33 * 1024,                           # 264 rows: br 8, gpt-125m's tile, one warp a tile
+    7 * 128, 6 * 128, 2 * 128,           # br 7 (odd), 6, 2: the warp path's narrower loads
+])
 def test_collage_update_kernel_bit_identical_to_plain(code, n):
     _card()
     from repro_torch.kernels.collage_update import collage_update as cu
     from repro_torch.kernels.collage_update import ref
+
+    state, grad = _update_inputs(code, n)
+    kw = _update_kw(code)
+    a, pa = cu.collage_bucket_update(state, grad, 1e-3, 0.19, 0.0975, **kw)
+    b, pb = ref.collage_bucket_update_plain(state, grad, 1e-3, 0.19, 0.0975, **kw)
+    torch.cuda.synchronize()
+    for f in a:
+        assert torch.equal(a[f].view(torch.uint8), b[f].view(torch.uint8)), f
+    for x, y in zip(pa, pb):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def _update_inputs(code, n):
+    from repro_torch.kernels.collage_update import collage_update as cu
 
     g = torch.Generator(device="cuda").manual_seed(n)
     rnd = lambda s: torch.randn((n,), generator=g, device="cuda") * s
@@ -115,13 +139,59 @@ def test_collage_update_kernel_bit_identical_to_plain(code, n):
               "master": 0.05}
     state = {f: (rnd(scales[f]).abs() if f == "vhi" else rnd(scales[f])).to(
         cu.field_dtype(f, code)) for f in cu.state_fields(code)}
-    grad = rnd(1e-2).to(torch.bfloat16)
-    kw = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1, strategy=code, compute_metrics=True,
-              pt_decay=code == "A", seed=77 if code == "SR" else None,
-              elem_offset=2**32 - 1024 if code == "SR" else None)
+    return state, rnd(1e-2).to(torch.bfloat16)
+
+
+def _update_kw(code):
+    return dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1, strategy=code, compute_metrics=True,
+                pt_decay=code == "A", seed=77 if code == "SR" else None,
+                elem_offset=2**32 - 1024 if code == "SR" else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["B", "C", "KAHAN"])
+def test_collage_update_kernel_keeps_subnormals(code):
+    """Low parts and Kahan compensations in the f32/bf16 subnormal range:
+    the kernel's bf16 rounding keeps subnormals, as the plain version's."""
+    _card()
+    from repro_torch.kernels.collage_update import collage_update as cu
+    from repro_torch.kernels.collage_update import ref
+
+    n = 33 * 1024                        # br 8: the warp path
+    state, grad = _update_inputs(code, n)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for f in ("vlo", "delta"):
+        if f in state:
+            tiny = torch.randn((n,), generator=g, device="cuda") * 1e-39
+            state[f] = tiny.to(torch.bfloat16)
+            assert bool((state[f] != 0).any())
+    kw = _update_kw(code)
     a, pa = cu.collage_bucket_update(state, grad, 1e-3, 0.19, 0.0975, **kw)
     b, pb = ref.collage_bucket_update_plain(state, grad, 1e-3, 0.19, 0.0975, **kw)
     torch.cuda.synchronize()
+    for f in a:
+        assert torch.equal(a[f].view(torch.uint8), b[f].view(torch.uint8)), f
+    for x, y in zip(pa, pb):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["C", "SR", "D"])
+def test_collage_update_unaligned_bucket_matches_aligned(code):
+    """A bucket whose pointers are not 16-byte aligned takes the one-block
+    path with scalar loads: same bits as the warp path on aligned copies."""
+    _card()
+    from repro_torch.kernels.collage_update import collage_update as cu
+
+    n = 33 * 1024                        # br 8
+    state, grad = _update_inputs(code, n)
+    shifted = lambda t: torch.cat([t.new_zeros(1), t])[1:]   # contiguous, 2 or 4 B off
+    kw = _update_kw(code)
+    a, pa = cu.collage_bucket_update(state, grad, 1e-3, 0.19, 0.0975, **kw)
+    b, pb = cu.collage_bucket_update({f: shifted(t) for f, t in state.items()}, shifted(grad),
+                                     1e-3, 0.19, 0.0975, **kw)
+    torch.cuda.synchronize()
+    assert grad.data_ptr() % 16 == 0 and shifted(grad).data_ptr() % 16
     for f in a:
         assert torch.equal(a[f].view(torch.uint8), b[f].view(torch.uint8)), f
     for x, y in zip(pa, pb):
