@@ -9,14 +9,17 @@ machine has none).
 
 ``bucketed_from_numpy`` takes a JAX ``BucketedParams`` + ``BucketedOptState``
 as numpy buckets and the layout's ``to_json()``, and returns the port's,
-bit-exactly; ``bucketed_to_numpy`` is its inverse (for the tests).
+bit-exactly; ``bucketed_to_numpy`` is its inverse (for the tests). Whole
+train states cross between the packages through the checkpoint format
+(``train.checkpoint``).
 
 ``opt_state_from_numpy`` takes a JAX tree-layout ``CollageOptState`` as
 numpy trees (Expansion leaves of ``v`` as ``(hi, lo)`` tuples) and returns
 the port's; ``opt_state_to_numpy`` is its inverse. The SR state is an int
 seed in the port: a JAX threefry key ``[k0, k1]`` becomes ``k0 ^ k1`` (the
 seed the JAX ``fused_step`` folds from it; ``PRNGKey(s)`` gives ``s``), and
-goes back as ``[0, seed]``.
+goes back as ``[0, seed]`` (``seed_from_key``, ``key_from_seed``; the
+checkpoint format stores the tree layout's seed so too).
 """
 
 from __future__ import annotations
@@ -32,6 +35,20 @@ from repro_torch.core.collage import CollageOptState
 from repro_torch.core.mcf import Expansion
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models.model import ParamTree
+
+
+def key_from_seed(seed: int) -> np.ndarray:
+    """The port's SR seed as the JAX package's threefry key: ``[0, seed]``,
+    which is ``jax.random.PRNGKey(seed)``."""
+    return np.array([0, int(seed) & bucketing.MASK32], np.uint32)
+
+
+def seed_from_key(key) -> int:
+    """A JAX threefry key ``[k0, k1]`` as the port's SR seed ``k0 ^ k1`` (the
+    seed the JAX ``fused_step`` folds from it); the inverse of
+    ``key_from_seed``."""
+    k0, k1 = (int(k) for k in np.asarray(key, np.uint32).reshape(2))
+    return k0 ^ k1
 
 
 def tensor_from_numpy(arr, device) -> torch.Tensor:
@@ -140,7 +157,7 @@ def opt_state_from_numpy(step, m, v, delta=None, master=None, rng=None, *,
     dev = resolve_device(device)
     if rng is not None:
         key = np.asarray(rng, dtype=np.uint32).reshape(-1)
-        rng = int(key[0]) ^ int(key[1]) if key.size == 2 else int(key[0])
+        rng = seed_from_key(key) if key.size == 2 else int(key[0])
     return CollageOptState(step=int(step), m=_opt_tree(m, dev), v=_opt_tree(v, dev),
                            delta=_opt_tree(delta, dev), master=_opt_tree(master, dev), rng=rng)
 
@@ -161,6 +178,6 @@ def opt_state_to_numpy(state: CollageOptState, bf16_dtype=np.uint16) -> dict:
     """Inverse of ``opt_state_from_numpy``: {"step", "m", "v", "delta",
     "master", "rng"}; the SR seed as a JAX-style key ``[0, seed]``."""
     conv = lambda t: _opt_tree_to_numpy(t, bf16_dtype)
-    rng = None if state.rng is None else np.array([0, state.rng & bucketing.MASK32], np.uint32)
+    rng = None if state.rng is None else key_from_seed(state.rng)
     return {"step": int(state.step), "m": conv(state.m), "v": conv(state.v),
             "delta": conv(state.delta), "master": conv(state.master), "rng": rng}

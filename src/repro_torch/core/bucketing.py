@@ -23,9 +23,11 @@ epilogue and the plain version) and the counter-based SR noise stream
 torch has no uint32 ``>>`` or ``+``, so the 32-bit hash runs in int64
 masked to 32 bits; products are split so that no int64 product overflows.
 
-Not ported yet: ``rebucket``/``migrate``/``state_template_for_layout``
-(checkpointing) and ``bucket_close_ranks``/``readiness_order``
-(distributed).
+``rebucket``, ``migrate`` and ``state_template_for_layout`` move every
+role array bit-exactly between two layouts (a checkpoint written under
+another size cap or pad multiple).
+
+Not ported yet: ``bucket_close_ranks``/``readiness_order`` (distributed).
 """
 
 from __future__ import annotations
@@ -263,6 +265,83 @@ class BucketedOptState:
     rng: Optional[int]
     layout: BucketLayout
     grad_err: Optional[tuple] = None
+
+
+def rebucket(data: Sequence[torch.Tensor], old: BucketLayout, new: BucketLayout) -> tuple:
+    """One role's buckets moved from layout ``old`` to ``new``, bit-exactly;
+    each bucket keeps the dtype of the old buckets (f32 moments stay f32)."""
+    if len(old.slots) != len(new.slots):
+        raise ValueError(f"{len(old.slots)} leaves vs {len(new.slots)}")
+    leaves = unbucket_leaves(data, old)
+    per_bucket: list = [[] for _ in new.buckets]
+    for slot, leaf in zip(new.slots, leaves):
+        per_bucket[slot.bucket].append(leaf.reshape(-1))
+    out = []
+    for spec, parts in zip(new.buckets, per_bucket):
+        pad = spec.padded - spec.size
+        if pad:
+            parts.append(torch.zeros((pad,), dtype=parts[0].dtype, device=parts[0].device))
+        out.append(torch.cat(parts))
+    return tuple(out)
+
+
+def _no_grad_err(state: BucketedOptState):
+    if state.grad_err is not None:
+        raise NotImplementedError("moving grad_err (gradient compression) between bucket "
+                                  "layouts: not yet ported to repro_torch")
+
+
+def _map_bucketed(obj: Any, fix) -> Any:
+    """``fix`` applied to every BucketedParams / BucketedOptState inside
+    ``obj`` (dataclasses, such as a TrainState, tuples, lists and dicts)."""
+    if isinstance(obj, (BucketedParams, BucketedOptState)):
+        return fix(obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, (type, BucketLayout)):
+        return dataclasses.replace(obj, **{f.name: _map_bucketed(getattr(obj, f.name), fix)
+                                           for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_map_bucketed(x, fix) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _map_bucketed(v, fix) for k, v in obj.items()}
+    return obj
+
+
+def migrate(obj: Any, new_layout: BucketLayout) -> Any:
+    """``obj`` with every bucketed node re-expressed under ``new_layout``
+    (values preserved bit-exactly)."""
+
+    def fix(x):
+        if isinstance(x, BucketedParams):
+            return BucketedParams(rebucket(x.data, x.layout, new_layout), new_layout)
+        _no_grad_err(x)
+        rb = lambda t: None if t is None else rebucket(t, x.layout, new_layout)
+        return BucketedOptState(x.step, rb(x.m), rb(x.vhi), rb(x.vlo), rb(x.delta),
+                                rb(x.master), x.rng, new_layout)
+
+    return _map_bucketed(obj, fix)
+
+
+def state_template_for_layout(obj: Any, layout: BucketLayout) -> Any:
+    """A zero-valued copy of ``obj`` with its bucketed nodes shaped for
+    ``layout`` (each role keeps its dtype): the restore template of a
+    checkpoint written under another bucket partitioning."""
+
+    def zeros_for(t):
+        if t is None:
+            return None
+        return tuple(torch.zeros((b.padded,), dtype=t[0].dtype, device=t[0].device)
+                     for b in layout.buckets)
+
+    def fix(x):
+        if isinstance(x, BucketedParams):
+            dev = x.data[0].device
+            return BucketedParams(tuple(torch.zeros((b.padded,), dtype=named_dtype(b.dtype),
+                                                    device=dev) for b in layout.buckets), layout)
+        _no_grad_err(x)
+        return BucketedOptState(x.step, zeros_for(x.m), zeros_for(x.vhi), zeros_for(x.vlo),
+                                zeros_for(x.delta), zeros_for(x.master), x.rng, layout)
+
+    return _map_bucketed(obj, fix)
 
 
 # --------------------------------------------------------------------------

@@ -32,6 +32,10 @@ class KernelBuildError(RuntimeError):
     pass
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel launch that the CUDA runtime refused."""
+
+
 def sources() -> list[pathlib.Path]:
     return sorted(CSRC.rglob("*.cu"))
 

@@ -190,7 +190,8 @@ def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9,
         stream)
     if err != 0:
         msg = lib.collage_update_error_string(err).decode()
-        raise RuntimeError(f"collage_update kernel launch failed: {msg} (cudaError {err})")
+        raise build.KernelLaunchError(
+            f"collage_update kernel launch failed: {msg} (cudaError {err})")
     return out, None if sums is None else sums[:N_METRICS]
 
 

@@ -68,7 +68,7 @@ def edq_partials(u: torch.Tensor, e: torch.Tensor, atol: float = 0.0) -> torch.T
                            n, grid, float(atol), stream)
     if err != 0:
         msg = lib.edq_error_string(err).decode()
-        raise RuntimeError(f"edq kernel launch failed: {msg} (cudaError {err})")
+        raise build.KernelLaunchError(f"edq kernel launch failed: {msg} (cudaError {err})")
     edq_partials.launches += 1
     return out
 

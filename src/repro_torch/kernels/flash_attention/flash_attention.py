@@ -125,7 +125,7 @@ def flash_fwd(q, k, v, *, causal=True, window=0):
                              int(window), stream)
     if err != 0:
         msg = lib.flash_fwd_error_string(err).decode()
-        raise RuntimeError(f"flash_fwd kernel launch failed: {msg} (cudaError {err})")
+        raise build.KernelLaunchError(f"flash_fwd kernel launch failed: {msg} (cudaError {err})")
     flash_fwd.launches += 1
     return o, lse
 
@@ -256,7 +256,8 @@ def flash_bwd_dq(q, k, v, lse, do, *, causal=True, window=0):
                                 k.shape[1], L, dh, int(bool(causal)), int(window), stream)
     if err != 0:
         msg = lib.flash_bwd_error_string(err).decode()
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: {msg} (cudaError {err})")
+        raise build.KernelLaunchError(
+            f"flash_bwd_dq kernel launch failed: {msg} (cudaError {err})")
     flash_bwd_dq.launches += 1
     return dq, delta
 
@@ -283,7 +284,8 @@ def flash_bwd_dkv(q, k, v, lse, do, delta, *, causal=True, window=0):
                                  B, H, k.shape[1], L, dh, int(bool(causal)), int(window), stream)
     if err != 0:
         msg = lib.flash_bwd_error_string(err).decode()
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: {msg} (cudaError {err})")
+        raise build.KernelLaunchError(
+            f"flash_bwd_dkv kernel launch failed: {msg} (cudaError {err})")
     flash_bwd_dkv.launches += 1
     return dk, dv
 

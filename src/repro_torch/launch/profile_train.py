@@ -33,8 +33,11 @@ def _group(name: str) -> str:
     if "collage_finish" in n:              # the update's sum over the tiles
         return "collage_update kernel"
     if is_gemm(n):
-        return "bf16 GEMM (cuBLAS)" if "sgemm" not in n and "f32f32" not in n \
-            else "f32 GEMM (cuBLAS, CUDA cores)"
+        if "sgemm" in n or "f32f32" in n:
+            return "f32 GEMM (cuBLAS, CUDA cores)"
+        # the lm_head products: vocab 50257 is odd, so their rows are not
+        # 16-byte aligned and cuBLAS runs its alignment-1 kernels
+        return "bf16 GEMM, unaligned (lm_head)" if "align1" in n else "bf16 GEMM (cuBLAS)"
     if "softmax" in n:
         return "softmax / log_softmax"
     return "other (elementwise, reductions, copies, indexing)"

@@ -1,10 +1,12 @@
 """Training launcher, the port of ``repro.launch.train``'s single-program
 path: builds the model, the Collage optimizer and the train step, and runs
-``--steps`` steps on the synthetic corpus (without the supervisor).
+``--steps`` steps on the synthetic corpus through ``RunSupervisor``
+(checkpointing, crash recovery, straggler records).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-125m \\
       --precision C --bucketed --fused-kernel --flash-min-len 256 \\
-      --seq-len 512 --batch 8 --steps 8
+      --seq-len 512 --batch 8 --steps 8 [--ckpt-dir D [--ckpt-every N] [--resume]] \\
+      [--remat {none,full,dots}]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-tiny --smoke \\
       --device cpu --steps 3 --bucketed --seq-len 32 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-125m \\
@@ -16,13 +18,15 @@ path: builds the model, the Collage optimizer and the train step, and runs
 partials from the CUDA EDQ kernel; ``--fused-kernel`` runs the CUDA Collage
 update instead (one launch per bucket per step; on the tree layout the
 buckets are rebuilt every step). ``--flash-min-len N`` runs the flash
-forward and backward kernels for sequences of at least N. On the CPU the
+forward and backward kernels for sequences of at least N. ``--remat``
+rematerialises each decoder layer in the backward pass. On the CPU the
 same flags run the kernels' plain versions.
 
-Not ported yet (each raises a "not yet ported" error): ``--resume``,
-checkpointing (``--ckpt-every``), ``--dp`` > 1, ``--zero``,
-``--pipeline-stages`` > 1, ``--grad-compression`` other than none,
-``--remat`` other than none, ``--xla-latency-hiding``.
+Checkpoints (the JAX package's format, ``train.checkpoint``) are written
+only with ``--ckpt-dir``: every ``--ckpt-every`` steps (default 100) and at
+the last step; ``--resume`` continues from the latest one there. (The JAX
+launcher defaults to a fixed directory under /tmp; the port writes nothing
+unless asked, so that runs in parallel never share a directory.)
 """
 
 from __future__ import annotations
@@ -40,18 +44,18 @@ from repro_torch.core.precision import BucketPolicy, PrecisionPolicy, parse_stra
 from repro_torch.data.synthetic import make_batch_fn
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import REMAT_MODES
+from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import train_loop
+from repro_torch.train.elastic import RunSupervisor, SupervisorConfig
 
 
 def _refuse_unported(args):
     unported = [
-        (args.resume, "--resume"),
-        (args.ckpt_every is not None, "--ckpt-every (checkpointing)"),
         (args.dp > 1, "--dp > 1"),
         (args.zero, "--zero"),
         (args.pipeline_stages > 1, "--pipeline-stages > 1"),
         (args.grad_compression != "none", f"--grad-compression {args.grad_compression}"),
-        (args.remat != "none", f"--remat {args.remat}"),
         (args.xla_latency_hiding, "--xla-latency-hiding"),
     ]
     for given, flag in unported:
@@ -90,7 +94,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--b2", type=float, default=0.95)
     ap.add_argument("--weight-decay", type=float, default=0.1)
     ap.add_argument("--warmup", type=int, default=20)
-    ap.add_argument("--remat", default="none")
+    ap.add_argument("--remat", default="none", choices=REMAT_MODES,
+                    help="rematerialise each decoder layer in the backward pass")
     ap.add_argument("--grad-compression", default="none")
     ap.add_argument("--fused-kernel", action="store_true",
                     help="the fused Collage update (CUDA kernel on the card)")
@@ -110,9 +115,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-metrics", action="store_true")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=None)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="write checkpoints here (none without it)")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="steps between checkpoints (default 100; needs --ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -120,15 +128,27 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
     _refuse_unported(args)
+    if args.ckpt_dir is None and (args.resume or args.ckpt_every is not None):
+        ap.error("--resume and --ckpt-every need --ckpt-dir")
     cfg, model, opt, step_fn, batch_fn, dev = build(args)
     state = train_loop.init_state(model, opt, args.seed, args.grad_compression, device=dev)
+    start = 0
+    if args.resume:
+        latest = ckpt_lib.latest_step(args.ckpt_dir)
+        if latest is not None:
+            state, extra = ckpt_lib.restore_bucketed(args.ckpt_dir, latest, state)
+            start = extra["step"]
+            print(f"resumed from step {start}")
+    every = 100 if args.ckpt_every is None else args.ckpt_every
+    sup = RunSupervisor(SupervisorConfig(args.ckpt_dir, every))
     history = []
     t0 = time.time()
-    step = start = 0
-    for i in range(start, args.steps):
-        state, metrics = step_fn(state, batch_fn(i))
+
+    def logged_step(state, batch):
+        state, metrics = step_fn(state, batch)
         step = int(state.opt_state.step)
         if step % args.log_every == 0 or step == 1:
             m = {k: float(v) for k, v in metrics.items()}
@@ -136,6 +156,9 @@ def main(argv=None):
             history.append(m)
             print(f"step {step:5d} loss {m['loss']:.4f} ppl {m['ppl']:.2f} "
                   f"edq {m.get('edq', 0):.3e} impr% {m.get('imprecision_pct', 0):.2f}")
+        return state, metrics
+
+    state, step, _ = sup.run(state, logged_step, batch_fn, args.steps, start_step=start)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0

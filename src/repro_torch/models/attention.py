@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention as kflash
-from repro_torch.models.layers import ACC, dense_init, matmul, rms_norm, rope_apply, rope_freqs
+from repro_torch.models.layers import (dense_init, matmul, matmul_f32, rms_norm, rope_apply,
+                                      rope_freqs)
 
 NEG_INF = -1e30
 
@@ -54,17 +55,23 @@ def _qkv(p, x, x_kv, cfg, positions, kv_positions):
 
 
 def _gqa_scores(q, k, cfg):
-    """(B,L,H,dh)×(B,S,Hk,dh) → (B,Hk,G,L,S) grouped scores, fp32."""
+    """(B,L,H,dh)×(B,S,Hk,dh) → (B,Hk,G,L,S) grouped scores, fp32: one
+    batched product over (B, Hk) of the group's (G·L, dh) queries."""
     B, L, h, dh = q.shape
-    hk = cfg.n_kv_heads
-    qg = q.reshape(B, L, hk, h // hk, dh)
-    return torch.einsum("blkgd,bskd->bkgls", qg.to(ACC), k.to(ACC)) * (dh**-0.5)
+    hk, S = cfg.n_kv_heads, k.shape[1]
+    g = h // hk
+    qg = q.reshape(B, L, hk, g, dh).permute(0, 2, 3, 1, 4).reshape(B * hk, g * L, dh)
+    kt = k.permute(0, 2, 3, 1).reshape(B * hk, dh, S)
+    return matmul_f32(qg, kt).reshape(B, hk, g, L, S) * (dh**-0.5)
 
 
 def _gqa_out(probs, v, cfg, dtype):
     B, hk, g, L, S = probs.shape
-    out = torch.einsum("bkgls,bskd->blkgd", probs.to(dtype).to(ACC), v.to(ACC)).to(dtype)
-    return out.reshape(B, L, hk * g * v.shape[-1])
+    dh = v.shape[-1]
+    pv = probs.to(dtype).reshape(B * hk, g * L, S)
+    vv = v.permute(0, 2, 1, 3).reshape(B * hk, S, dh)
+    out = matmul_f32(pv, vv).to(dtype).reshape(B, hk, g, L, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, L, hk * g * dh)
 
 
 def full_attention(p, x, cfg, *, causal=True, window=0, positions=None):

@@ -32,6 +32,48 @@ def matmul(x, w):
     return torch.matmul(x, w)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of two storage-dtype operands, 2-D (mm) or batched 3-D
+    (bmm), with an f32 result: one tensor-core product with f32 output
+    (``aten::mm.dtype`` / ``bmm.dtype``, which have no derivative of their
+    own). The backward is JAX's transpose rule for ``dot_general`` with
+    ``preferred_element_type=f32``: each operand's cotangent is a product
+    of the f32 cotangent g with the other operand, f32 out, converted to
+    the operand's dtype. g is rounded to the operands' dtype for those two
+    products (a TPU's default precision does the same to an f32 operand of
+    a bf16 product)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = _mm_f32(g, b.transpose(-1, -2)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = _mm_f32(a.transpose(-1, -2), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def _mm_f32(a, b):
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    return mm(a, b, out_dtype=ACC)
+
+
+def matmul_f32(a, b):
+    """``a @ b`` (2-D, or 3-D batched) with an f32 result: the JAX
+    package's ``preferred_element_type=f32`` product. On the card a bf16
+    pair runs as one bf16 product with f32 output (``_MatmulF32``). The
+    CPU has no ``mm.dtype`` kernel, so there (and for f32 operands) both
+    operands are upcast and multiplied in f32: the same products, summed
+    in another order."""
+    if a.is_cuda and a.dtype != ACC:
+        return _MatmulF32.apply(a, b)
+    return torch.matmul(a.to(ACC), b.to(ACC))
+
+
 def rms_norm(x, scale, eps):
     xf = x.to(ACC)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

@@ -40,7 +40,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bucketing import BucketedParams
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import ACC, dense_init, embed_lookup, rms_norm, rms_norm_init
+from repro_torch.models.layers import (ACC, dense_init, embed_lookup, matmul_f32, rms_norm,
+                                      rms_norm_init)
 
 # MoE load-balance penalty weight in the training objective (the JAX
 # package's ``AUX_LOSS_COEF``)
@@ -183,7 +184,8 @@ class Model:
         cfg = self.cfg
         x = rms_norm(x, params.decoder.final_norm, cfg.norm_eps)
         w = params.embed.T if cfg.tie_embeddings else params.lm_head
-        return torch.matmul(x.to(ACC), w.to(ACC))  # logits fp32
+        logits = matmul_f32(x.reshape(-1, x.shape[-1]), w)     # fp32
+        return logits.reshape(*x.shape[:-1], w.shape[-1])
 
     def _has_recurrent_state(self) -> bool:
         return any(s.kind in ("mamba", "rwkv_tmix", "rwkv_cmix")
@@ -192,14 +194,14 @@ class Model:
     # ------------------------------------------------------------ forward --
     def forward(self, params, batch, remat: str = "none"):
         """Full-sequence logits. Returns (logits fp32, aux_loss); aux_loss is
-        the MoE balance loss of the JAX package, 0 until MoE is ported."""
-        if remat != "none":
-            raise NotImplementedError(f"remat {remat!r}: not yet ported to repro_torch")
+        the MoE balance loss of the JAX package, 0 until MoE is ported.
+        ``remat`` ("none", "full", "dots") rematerialises each decoder
+        layer in the backward pass (``transformer.group_apply``)."""
         cfg = self.cfg
         params = as_view(params)
         x = embed_lookup(params.embed, batch["tokens"])
         for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
-            x = tf.group_apply(gp, x, g, cfg)
+            x = tf.group_apply(gp, x, g, cfg, remat=remat)
         return self._head(params, x), torch.zeros((), dtype=ACC, device=x.device)
 
     @staticmethod

@@ -10,6 +10,12 @@ are ported; moe, mamba, rwkv and cross-attention raise.
 
 from __future__ import annotations
 
+import functools
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
 from repro_torch.configs.base import Group, ModelConfig, Sub
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import dense_init, mlp_apply, rms_norm, rms_norm_init
@@ -72,12 +78,46 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, positions=None):
     return x + out
 
 
-def group_apply(params, x, group: Group, cfg: ModelConfig, positions=None):
-    """Full-sequence forward through one group (loop over its layers)."""
+REMAT_MODES = ("none", "full", "dots")
+
+# "dots" keeps the outputs of the 2-D products (a (B, L, D) activation
+# times a weight matrix reaches aten as mm): JAX's
+# ``dots_with_no_batch_dims_saveable``. Batched products (the attention
+# einsums), the flash kernels and everything elementwise are recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat(remat: str):
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat {remat!r}: one of {REMAT_MODES}")
+
+
+def group_apply(params, x, group: Group, cfg: ModelConfig, positions=None, remat: str = "none"):
+    """Full-sequence forward through one group (loop over its layers).
+
+    ``remat`` rematerialises each layer's body in the backward pass, as the
+    JAX package's ``jax.checkpoint`` of its scan body: "full" saves only
+    the layer's input, "dots" also the outputs of its 2-D products."""
+    check_remat(remat)
+
+    def body(h, lp):
+        for i, s in enumerate(group.period):
+            h = sub_apply(lp[f"sub{i}"], h, s, cfg, positions=positions)
+        return h
+
     for layer in range(group.repeats):
         lp = layer_params(params, layer)
-        for i, s in enumerate(group.period):
-            x = sub_apply(lp[f"sub{i}"], x, s, cfg, positions=positions)
+        if remat == "none":
+            x = body(x, lp)
+        elif remat == "full":
+            x = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x = checkpoint(body, x, lp, use_reentrant=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy))
     return x
 
 

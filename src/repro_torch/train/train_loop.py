@@ -15,7 +15,7 @@ The step function mutates nothing: it returns a new ``TrainState`` (the
 optimizer's update is functional, as the JAX package's).
 
 Not ported yet: gradient compression (``grad_compression`` other than
-"none"), the sharded collective (``psum_axis``) and remat.
+"none") and the sharded collective (``psum_axis``).
 """
 
 from __future__ import annotations
@@ -23,12 +23,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.convert import key_from_seed, seed_from_key
 from repro_torch.core import bucketing
-from repro_torch.core.collage import CollageAdamW
+from repro_torch.core.collage import CollageAdamW, CollageOptState
+from repro_torch.core.mcf import Expansion
 from repro_torch.launch.api import CapabilityError
 from repro_torch.models.model import Model, param_dict
+from repro_torch.models.transformer import check_remat
 
 
 @dataclasses.dataclass
@@ -36,6 +40,54 @@ class TrainState:
     params: Any                      # BucketedParams, or the model's nested dict
     opt_state: Any                   # BucketedOptState, or CollageOptState
     grad_err: Optional[Any] = None   # EF residual of gradient compression (not ported)
+
+    def map_named(self, fn: Callable[[str, Any], Any]) -> "TrainState":
+        """A TrainState of the same structure with every stored array ``a``
+        replaced by ``fn(name, a)``: the checkpoint format's naming hook.
+
+        ``fn`` is called in the JAX package's leaf order, with the name
+        ``jax.tree_util.keystr`` gives that leaf of its ``TrainState``
+        (keyed fields; ``CollageOptState`` and ``Expansion`` unkeyed, so
+        their children are ``[<flat index i>]``). The host ints go to ``fn``
+        as the arrays the JAX package stores and come back as ints:
+        ``step`` as an int32 scalar, the SR seed as a threefry key
+        ``[0, seed]`` on the tree layout (read back as ``k0 ^ k1``) and as
+        a uint32 scalar on the bucketed layout."""
+        p, o = self.params, self.opt_state
+        as_int = lambda name, v, dt: int(np.asarray(fn(name, np.asarray(v, dt))))
+        if isinstance(p, bucketing.BucketedParams):
+            params = bucketing.BucketedParams(_named(fn, ".params.data", p.data), p.layout)
+            step = as_int(".opt_state.step", o.step, np.int32)
+            m, vhi, vlo, delta, master = (_named(fn, f".opt_state.{r}", getattr(o, r))
+                                          for r in ("m", "vhi", "vlo", "delta", "master"))
+            rng = None if o.rng is None else as_int(".opt_state.rng", o.rng, np.uint32)
+            ge = _named(fn, ".opt_state.grad_err", o.grad_err)
+            opt_state = bucketing.BucketedOptState(step, m, vhi, vlo, delta, master, rng,
+                                                   o.layout, ge)
+        else:
+            params = _named(fn, ".params", p)
+            idx = ".opt_state[<flat index {}>]".format
+            step = as_int(idx(0), o.step, np.int32)
+            m, v, delta, master = (_named(fn, idx(i), getattr(o, r))
+                                   for i, r in enumerate(("m", "v", "delta", "master"), 1))
+            rng = None if o.rng is None else seed_from_key(fn(idx(5), key_from_seed(o.rng)))
+            opt_state = CollageOptState(step, m, v, delta, master, rng)
+        return TrainState(params, opt_state, _named(fn, ".grad_err", self.grad_err))
+
+
+def _named(fn, prefix: str, tree):
+    """``fn(name, leaf)`` over nested dicts (sorted keys), lists, tuples and
+    Expansions, named and ordered as ``jax.tree_util`` names them."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _named(fn, f"{prefix}[{k!r}]", tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_named(fn, f"{prefix}[{i}]", v) for i, v in enumerate(tree))
+    if isinstance(tree, Expansion):
+        return Expansion(fn(f"{prefix}[<flat index 0>]", tree.hi),
+                         fn(f"{prefix}[<flat index 1>]", tree.lo))
+    return fn(prefix, tree)
 
 
 def _check_compression(grad_compression: str):
@@ -77,9 +129,10 @@ def make_accum_grads(model: Model, *, microbatch: int = 0, remat: str = "none",
     """Build ``accum(params, batch) → (loss, metrics, grads)``. With
     ``microbatch`` > 0 the batch is split into chunks of that many rows and
     the gradients are accumulated in f32, then averaged and cast back to the
-    parameter dtype; pre-chunked (n, mb, L) batches are taken as they are."""
-    if remat != "none":
-        raise NotImplementedError(f"remat {remat!r}: not yet ported to repro_torch")
+    parameter dtype; pre-chunked (n, mb, L) batches are taken as they are.
+    ``remat`` ("none", "full", "dots") rematerialises each decoder layer in
+    the backward pass (``models.transformer.group_apply``)."""
+    check_remat(remat)
     model = with_flash(model, flash_min_len)
 
     def grads_of(params, batch):
@@ -91,7 +144,7 @@ def make_accum_grads(model: Model, *, microbatch: int = 0, remat: str = "none",
             leaves = tuple(t.requires_grad_(True) for t in flat)
             p = bucketing.tree_unflatten(skel, leaves)
         with torch.enable_grad():
-            loss, metrics = model.loss(p, batch)
+            loss, metrics = model.loss(p, batch, remat=remat)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = tuple(torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, grads))
         if isinstance(params, bucketing.BucketedParams):

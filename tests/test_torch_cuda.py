@@ -280,3 +280,31 @@ def test_edq_kernel_lost_count_exact_past_2_24():
     got = kedq.edq_partials(torch.ones(n, device="cuda"), torch.zeros(n, device="cuda"))
     torch.cuda.synchronize()
     assert float(got[3]) == float(torch.tensor(float(n), dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape_a,shape_b", [((300, 64), (64, 1001)),       # the head, odd N
+                                             ((6, 70, 32), (6, 32, 90))])   # the GQA products
+def test_matmul_f32_on_card_matches_f32_product(shape_a, shape_b):
+    """``layers.matmul_f32`` on the card: one bf16 product with f32 output,
+    and the backward's two products on the bf16-rounded cotangent. Forward
+    against the f32 product of the same bf16 operands (summation order
+    only); gradients against autograd of that f32 product, where g is not
+    rounded (g's rounding is 2^-9 relative per element)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: mm.dtype has no CPU kernel")
+    from repro_torch.models.layers import matmul_f32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(shape_a, generator=g, device="cuda").bfloat16().requires_grad_(True)
+    b = torch.randn(shape_b, generator=g, device="cuda").bfloat16().requires_grad_(True)
+    out = matmul_f32(a, b)
+    ref = torch.matmul(a.float(), b.float())
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+    gy = torch.randn(out.shape, generator=g, device="cuda")
+    da, db = torch.autograd.grad(out, (a, b), gy)
+    ra, rb = torch.autograd.grad(ref, (a, b), gy)
+    assert da.dtype == db.dtype == torch.bfloat16
+    for got, want in ((da, ra), (db, rb)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-6,
+                                   atol=2.0**-6 * want.abs().max().item())

@@ -1,6 +1,7 @@
 """Import guard: the port and chip_smoke.py import nothing of JAX, ml_dtypes
 or the JAX package, and the port serves and trains (bucketed and on the
-tree layout) with JAX made unimportable."""
+tree layout, checkpointing, resuming and rematerialising) with JAX made
+unimportable."""
 
 import ast
 import os
@@ -63,6 +64,13 @@ def test_port_serves_with_jax_unimportable():
                            "--batch", "2", "--precision", "SR", "--flash-min-len", "8",
                            "--log-every", "1"])          # the tree layout
         assert len(hist) == 2 and hist[-1]["edq"] > 0, hist
+        import tempfile
+        with tempfile.TemporaryDirectory() as d:     # checkpoints: bf16 through uint16
+            flags = ["--smoke", "--device", "cpu", "--seq-len", "16", "--batch", "2",
+                     "--bucketed", "--log-every", "1", "--ckpt-dir", d, "--remat", "dots"]
+            train.main([*flags, "--steps", "2", "--ckpt-every", "1"])
+            hist = train.main([*flags, "--steps", "3", "--resume"])
+            assert [h["step"] for h in hist] == [3], hist
         assert not any(m.split(".")[0] in ("jax", "ml_dtypes") for m in sys.modules
                        if sys.modules[m] is not None)
         print("PORT_WITHOUT_JAX_OK")

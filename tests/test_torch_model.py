@@ -18,7 +18,8 @@ from repro.configs import get_config as jax_config
 from repro.models.model import build_model as jax_build
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
-from repro_torch.models.model import build_model
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.model import as_view, build_model
 
 # f32: the tolerance of tests/test_flash_vjp.py's model-level prefill check.
 # bf16: every matmul output is rounded to bf16 (2^-8 relative) and the two
@@ -145,3 +146,36 @@ def test_sampling_is_seeded_and_top_k_bounded():
         assert all(int(t) in top5[i].tolist() for i, t in enumerate(tok))
     one = sample_logits(logits, torch.Generator().manual_seed(3), 2.0, 1)
     assert torch.equal(one, greedy_tokens(logits))
+
+
+def test_head_cpu_path_and_its_gradient():
+    """``Model._head`` on the CPU is the f32 product of the upcast operands
+    (the card's bf16 product with f32 output has no CPU kernel), and its
+    bf16 gradients match the JAX package's ``preferred_element_type=f32``
+    product's: both take the f32 cotangent times the other operand and
+    round once to bf16, so they may differ by one bf16 ulp."""
+    _, jm, jp, tm, tp = _pair("bfloat16", 0)
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, 5, tm.cfg.d_model)) * 0.5).astype(np.float32)
+    r = rng.standard_normal((2, 5, tm.cfg.vocab_size)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    w = tp.lm_head.detach()
+    norm = tp.decoder.final_norm.detach()
+    want = torch.matmul(rms_norm(xb, norm, tm.cfg.norm_eps).float(), w.float())
+    xg, wg = xb.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    params = {"embed": tp.embed.detach(), "lm_head": wg,
+              "decoder": {"groups": [], "final_norm": norm}}
+    logits = tm._head(as_view(params), xg)
+    assert logits.dtype == torch.float32 and torch.equal(logits, want)
+    dx, dw = torch.autograd.grad((logits * torch.from_numpy(r)).sum(), (xg, wg))
+
+    def jhead(xj, wj):
+        p = dict(jp, lm_head=wj)
+        return jnp.sum(jm._head(p, xj) * r)
+
+    jdx, jdw = jax.grad(jhead, argnums=(0, 1))(jnp.asarray(x, jnp.bfloat16),
+                                               jnp.asarray(jp["lm_head"]))
+    for got, ref in ((dx, jdx), (dw, jdw)):
+        ref = np.asarray(ref, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=2.0**-7,
+                                   atol=2.0**-7 * np.abs(ref).max())

@@ -17,12 +17,14 @@ package's own initial weights and batches.
   tolerances stated at the test as for the bucketed case; SR (its own
   noise stream) by a finite, falling loss.
 * The CLI with ``--device cpu --smoke --steps 3`` runs, bucketed and on
-  the tree layout under every strategy, and every flag that is not ported
-  raises.
+  the tree layout under every strategy; it checkpoints and resumes with
+  ``--ckpt-dir`` (and writes nothing without it), runs ``--remat``, and
+  every flag that is not ported raises.
 """
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -140,8 +142,8 @@ def test_bucketed_c_steps_match_jax_bf16(flash):
 
 def test_tree_layout_step_is_not_ported():
     """What stays unported on the tree layout: the per-leaf metric partials
-    of the pipeline engine, remat and the sharded step. (The tree step
-    itself is ported: see the tree-layout cases below.)"""
+    of the pipeline engine and the sharded step. (The tree step itself is
+    ported: see the tree-layout cases below; remat: test_torch_remat.py.)"""
     tm = build_model(get_config("gpt-smoke", smoke=True))
     opt = CollageAdamW(1e-3)
     state = ttl.init_state(tm, opt, 0, device="cpu")
@@ -150,8 +152,6 @@ def test_tree_layout_step_is_not_ported():
     _, _, grads = ttl.make_accum_grads(tm)(state.params, batch)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         opt.step(grads, state.params, state.opt_state, metrics_partials=True)
-    with pytest.raises(NotImplementedError):
-        ttl.make_accum_grads(tm, remat="full")
     with pytest.raises(NotImplementedError):
         ttl.make_train_step(tm, opt, psum_axis="data")
     metrics = ttl.make_eval_step(tm)(state.params, batch)
@@ -246,13 +246,62 @@ def test_cli_tree_layout_runs_on_cpu(precision, capsys):
     assert "done: 2 steps" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--resume"], ["--ckpt-every", "5"], ["--dp", "2"],
-                                   ["--zero"], ["--pipeline-stages", "2"],
-                                   ["--grad-compression", "fp8_ef"], ["--remat", "full"],
-                                   ["--xla-latency-hiding"]])
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--zero"], ["--pipeline-stages", "2"],
+                                   ["--grad-compression", "fp8_ef"], ["--xla-latency-hiding"]])
 def test_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tlaunch.main(["--smoke", "--device", "cpu", "--steps", "1", *flags])
+
+
+CLI = ["--arch", "gpt-tiny", "--smoke", "--device", "cpu", "--seq-len", "32", "--batch", "4",
+       "--bucketed", "--fused-kernel", "--flash-min-len", "16", "--log-every", "1"]
+
+
+def _losses(hist):
+    return {h["step"]: h["loss"] for h in hist}
+
+
+def test_cli_checkpoints_and_resumes(tmp_path, capsys):
+    """--ckpt-every 2 over 4 steps writes steps 2 and 4; --resume with
+    --steps 6 continues from 4, and steps 5 and 6 are those of a straight
+    6-step run, bit for bit."""
+    d = str(tmp_path / "ck")
+    tlaunch.main([*CLI, "--steps", "4", "--ckpt-dir", d, "--ckpt-every", "2"])
+    assert sorted(os.listdir(d)) == ["latest", "step_00000002", "step_00000004"]
+    resumed = tlaunch.main([*CLI, "--steps", "6", "--ckpt-dir", d, "--resume"])
+    assert "resumed from step 4" in capsys.readouterr().out
+    straight = tlaunch.main([*CLI, "--steps", "6"])
+    assert [h["step"] for h in resumed] == [5, 6]
+    assert _losses(resumed) == {k: v for k, v in _losses(straight).items() if k > 4}
+
+
+def test_cli_ckpt_every_defaults_to_100_and_saves_the_last_step(tmp_path):
+    d = str(tmp_path / "ck")
+    tlaunch.main([*CLI, "--steps", "3", "--ckpt-dir", d])
+    assert sorted(os.listdir(d)) == ["latest", "step_00000003"]
+
+
+def test_cli_writes_no_checkpoint_without_ckpt_dir(tmp_path, monkeypatch):
+    """The port's launcher writes nothing unless --ckpt-dir is given (the
+    JAX launcher defaults to a fixed directory under /tmp)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tlaunch.ckpt_lib, "save", lambda *a, **k: pytest.fail("saved"))
+    tlaunch.main([*CLI, "--steps", "2"])
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("flags", [["--resume"], ["--ckpt-every", "5"]])
+def test_cli_checkpoint_flags_need_ckpt_dir(flags):
+    with pytest.raises(SystemExit):
+        tlaunch.main([*CLI, "--steps", "1", *flags])
+
+
+@pytest.mark.parametrize("mode", ["full", "dots"])
+def test_cli_remat_runs_the_same_steps(mode, tmp_path):
+    """--remat changes what the backward pass keeps, not what it computes:
+    the losses of 3 steps equal those without it, bit for bit."""
+    hist = tlaunch.main([*CLI, "--steps", "3", "--remat", mode])
+    assert _losses(hist) == _losses(tlaunch.main([*CLI, "--steps", "3"]))
 
 
 def test_cli_defaults_to_cuda():
