@@ -8,8 +8,8 @@
 * typed exceptions — ``AdmissionError`` (a ``ValueError``),
   ``CapabilityError`` (a ``RuntimeError``) and ``PoolError``, all under
   ``ServeError``.
-* ``make_engine(model, params, mode=...)``: ``closed`` is ported;
-  ``continuous`` and ``speculative`` raise ``CapabilityError``.
+* ``make_engine(model, params, mode=...)``: ``closed``, ``continuous`` and
+  ``speculative``.
 
 The JAX package's loose per-engine sampling kwargs (its deprecation shim
 ``SamplingParams.resolve``) are not carried over: the port's engines take
@@ -70,8 +70,9 @@ class SamplingParams:
 class Request:
     """One generation request: a token prompt. ``max_new_tokens`` caps THIS
     request's generation (None = the engine call's gen length);
-    ``frontend`` and ``arrival`` exist for the engines and families not yet
-    ported (the closed engine rejects a frontend on a text-only arch)."""
+    ``arrival`` is the virtual tick the continuous engine admits it at;
+    ``frontend`` exists for the families not yet ported (the closed engine
+    rejects a frontend on a text-only arch)."""
 
     tokens: np.ndarray                       # (L,) int
     frontend: Optional[np.ndarray] = None
@@ -98,12 +99,22 @@ class RequestResult:
 
 def make_engine(model, params, *, mode: str = "closed",
                 sampling: Optional[SamplingParams] = None, **kwargs):
-    """Engine factory: ``closed`` → GenerationEngine. Extra kwargs pass
-    through to the engine constructor."""
+    """Engine factory: ``closed`` → GenerationEngine, ``continuous`` →
+    ContinuousEngine, ``speculative`` → ContinuousEngine with a draft model
+    attached (requires ``draft_model=``, ``draft_params=`` and a positive
+    ``spec_k``, 4 by default). Extra kwargs pass through to the engine
+    constructor (``cache_len`` etc. for the open-stream modes)."""
     from repro_torch.launch import serve                # circular-free: lazy
 
     if mode == "closed":
         return serve.GenerationEngine(model, params, sampling=sampling, **kwargs)
-    if mode in ("continuous", "speculative"):
-        raise CapabilityError(f"mode={mode!r}: not yet ported to repro_torch")
+    if mode == "continuous":
+        return serve.ContinuousEngine(model, params, sampling=sampling, **kwargs)
+    if mode == "speculative":
+        if kwargs.get("draft_model") is None or kwargs.get("draft_params") is None:
+            raise AdmissionError("mode='speculative' requires draft_model= and draft_params=")
+        kwargs.setdefault("spec_k", 4)
+        if kwargs["spec_k"] <= 0:
+            raise AdmissionError(f"mode='speculative' requires spec_k > 0, got {kwargs['spec_k']}")
+        return serve.ContinuousEngine(model, params, sampling=sampling, **kwargs)
     raise AdmissionError(f"unknown engine mode {mode!r} (closed | continuous | speculative)")

@@ -1,13 +1,24 @@
-"""Where the time of one closed-batch serve run goes, on the card.
+"""Where the time of serving goes, on the card.
 
-Runs the serving workload of ``chip_smoke.py`` (gpt-125m, 8 ragged
-requests with prompts 257–512, 32 greedy tokens, max_batch 8,
-flash_min_len 256) once to warm up, then once under ``torch.profiler``,
-and prints: the wall time, the device's busy share of it (union of kernel
-intervals), and device time by kernel, grouped (flash kernel, GEMMs, the
-rest) and by name. ``--trace`` writes the Chrome trace (over 64 MB for this run).
+Closed engine (default): runs the serving workload of ``chip_smoke.py``
+(gpt-125m, 8 ragged requests with prompts 257–512, 32 greedy tokens,
+max_batch 8, flash_min_len 256) once to warm up, then once under
+``torch.profiler``, and prints: the wall time, the device's busy share of
+it (union of kernel intervals), and device time by kernel, grouped (flash
+kernel, GEMMs, the rest) and by name. ``--trace`` writes the Chrome trace
+(over 64 MB for this run).
+
+``--continuous``: the slot arena of ``chip_smoke.py``'s serve_continuous
+phase (gpt-125m, its trace's first 8 requests prefilled into 8 slots of
+576 positions, 4 a prefill launch) and one decode segment of 16 steps
+traced the same way, with the launches per decode step; with
+``--speculative-draft {self,layers:N}`` also one speculative round (the
+draft's proposal of 4 tokens, then the target's verify), each half traced
+on its own.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --continuous \
+      --speculative-draft layers:6
 """
 
 from __future__ import annotations
@@ -24,8 +35,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.launch.api import SamplingParams, make_engine
-from repro_torch.launch.serve import synthetic_requests
+from repro_torch.launch.serve import (_bucket_len, draft_from_target, poisson_requests,
+                                      synthetic_requests)
 from repro_torch.models.model import build_model
+
+# the serve_continuous trace of chip_smoke.py: benchmarks/decode.py's
+# serving trace at gpt-125m's prompt lengths (one 512 bucket)
+TRACE = dict(n=24, lo=257, hi=512, gen_lo=4, gen_hi=64, rate=2.0, seed=0)
+ENGINE = dict(max_slots=8, seg_len=16, prefill_batch=4)
+SPEC_K = 4
 
 
 def is_gemm(lower_name: str) -> bool:
@@ -76,11 +94,92 @@ def device_summary(prof, wall_us: float, group) -> dict:
     }
 
 
+def trace_requests(vocab_size: int):
+    t = TRACE
+    return poisson_requests(vocab_size, t["n"], t["lo"], t["hi"], t["gen_lo"], t["gen_hi"],
+                            t["rate"], seed=t["seed"])
+
+
+def cache_len() -> int:
+    return _bucket_len(TRACE["hi"]) + TRACE["gen_hi"]
+
+
+def fixed_slot_state(model, params, draft_model, draft_params, reqs):
+    """The first ``max_slots`` requests of ``reqs`` written into a fresh
+    arena (and the draft's pool) in prefill launches of ``prefill_batch``,
+    each with budget ``gen_hi``: a full pool, every slot live. Returns
+    (slots, draft, batch, prompt_lens) with the padded (max_slots, bucket)
+    batch."""
+    n, pb, S = ENGINE["max_slots"], ENGINE["prefill_batch"], cache_len()
+    dev = params.device
+    toks = torch.zeros((n, _bucket_len(TRACE["hi"])), dtype=torch.int64)
+    for i, r in enumerate(reqs[:n]):
+        toks[i, :len(r.tokens)] = torch.as_tensor(r.tokens)
+    toks = toks.to(dev)
+    lens = torch.tensor([len(r.tokens) for r in reqs[:n]], device=dev)
+    slots = model.init_slot_state(n, S, device=dev)
+    draft = draft_model.init_decode_state(n, S, device=dev)
+    for g0 in range(0, n, pb):
+        rows = slice(g0, g0 + pb)
+        batch = {"tokens": toks[rows]}
+        sidx = list(range(g0, g0 + pb))
+        model.prefill_into(params, slots, batch, sidx, [TRACE["gen_hi"]] * pb, cache_len=S,
+                           prompt_lens=lens[rows])
+        draft_model.prefill_state_into(draft_params, draft, batch, sidx, cache_len=S,
+                                       prompt_lens=lens[rows])
+    return slots, draft, {"tokens": toks}, lens
+
+
+def _profiled(fn, make_args):
+    """``fn(*make_args())`` once to warm up, then once under the profiler
+    (the arguments made outside it) → device_summary."""
+    fn(*make_args())
+    args = make_args()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return device_summary(prof, wall_us, _group)
+
+
+def profile_continuous(draft_spec=None) -> dict:
+    cfg = dataclasses.replace(get_config("gpt-125m"), flash_min_len=256)
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    dm, dp = draft_from_target(model, params, draft_spec or "self")
+    slots, draft, _, _ = fixed_slot_state(model, params, dm, dp, trace_requests(cfg.vocab_size))
+    seg_len = ENGINE["seg_len"]
+    out = {"segment": _profiled(
+        lambda s: model.decode_segment(params, s, seg_len=seg_len, eos_id=1),
+        lambda: (slots.clone(),))}
+    out["segment"]["launches_per_decode_step"] = out["segment"]["kernel_launches"] / seg_len
+    if draft_spec:
+        out["draft"] = draft_spec
+        out["propose"] = _profiled(
+            lambda d, s: dm.draft_propose(dp, d, s.tok, s.state.pos, s.run, spec_k=SPEC_K),
+            lambda: (draft.clone(), slots))
+        out["verify"] = _profiled(
+            lambda s, props: model.spec_verify(params, s, props, eos_id=1),
+            lambda: (slots.clone(), slots.tok.repeat(1, SPEC_K)))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--trace", default=None, help="write the Chrome trace here")
+    ap.add_argument("--trace", default=None, help="write the Chrome trace here (closed engine)")
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--continuous", action="store_true",
+                    help="profile one decode segment of the continuous engine's slot arena")
+    ap.add_argument("--speculative-draft", default=None,
+                    help="with --continuous: also one speculative round with this draft "
+                         "(self | layers:N)")
     args = ap.parse_args(argv)
+    if args.continuous:
+        summary = profile_continuous(args.speculative_draft)
+        print(json.dumps(summary, indent=1))
+        return summary
 
     cfg = dataclasses.replace(get_config("gpt-125m"), flash_min_len=256)
     model = build_model(cfg)

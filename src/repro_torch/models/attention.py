@@ -5,8 +5,9 @@ GQA is computed with grouped einsums — KV heads are never materialized
 repeated. Softmax in fp32. Above ``cfg.flash_min_len`` every causal
 self-attention sublayer dispatches to the flash kernel
 (``kernel_flash_attention``); the masked path stays as the short-sequence
-implementation and the test oracle. ``banded_attention``,
-``verify_attention`` and the cross-attention paths are not ported yet.
+implementation and the test oracle. ``verify_attention`` is the
+speculative verify step. ``banded_attention`` and the cross-attention
+paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -153,6 +154,49 @@ def decode_attention(p, x, cfg, cache, pos, *, window=0, active=None):
     if window:
         invalid |= kj <= positions - window
     scores = scores.masked_fill(invalid[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, cache["v"], cfg, x.dtype)
+    return matmul(out, p["wo"]), cache
+
+
+def verify_attention(p, x, cfg, cache, pos, *, window=0, active=None):
+    """Multi-token verify step (speculative decoding): x (B, W, D) is the
+    current token + the draft's proposals, W = k+1.
+
+    Writes the W new K/V rows at ``pos[b] .. pos[b]+W-1``, then every query
+    position i attends over the first ``pos[b]+i+1`` cache entries (window
+    mask as in decode), so logits[:, i] are those of sequential decode after
+    consuming tokens 0..i. Rejected suffixes need no erasure: the caller
+    rolls ``pos`` back and the stale rows beyond it are never attended.
+
+    The cache is updated in place. A write is dropped (the JAX package's
+    ``mode="drop"``) where its row is inactive or its position is past the
+    cache end S. Dropped pairs are not clamped (several would land on S-1,
+    and ``index_put_`` with repeated indices has no defined order on the
+    card), nor filtered out (a data-dependent count would sync the host):
+    position ``pos+i`` goes to ``(pos+i) mod S``, distinct within a row
+    for W <= S, and a dropped pair's slot gets its own value back. Past the
+    end that slot is ``pos+i-S < pos``, below every live write of the row."""
+    B, W, _ = x.shape
+    S = cache["k"].shape[1]
+    if W > S:
+        raise ValueError(f"verify width {W} exceeds the cache length {S}")
+    positions = pos[:, None] + torch.arange(W, device=x.device)[None, :]   # (B, W)
+    q, k_new, v_new = _qkv(p, x, x, cfg, positions, positions)
+    live = positions < S
+    if active is not None:
+        live &= active[:, None]
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, W)
+    wpos = positions % S
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        c[rows, wpos] = torch.where(live[..., None, None], new.to(c.dtype), c[rows, wpos])
+    scores = _gqa_scores(q, cache["k"], cfg)         # (B,hk,g,W,S)
+    kj = torch.arange(S, device=x.device)[None, None, :]
+    invalid = kj > positions[:, :, None]             # (B, W, S) per query
+    if window:
+        invalid |= kj <= positions[:, :, None] - window
+    scores = scores.masked_fill(invalid[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, cache["v"], cfg, x.dtype)
     return matmul(out, p["wo"]), cache

@@ -26,6 +26,14 @@ true cache position (per-row ragged prompt lengths included) and
 package's ``lax.scan``), with EOS / per-request budgets (finished rows
 freeze ``pos``, leave their cache untouched and emit ``pad_id``).
 Randomness comes from an explicit ``torch.Generator``.
+
+Slot-pool serving (continuous batching) keeps a ``SlotState`` arena on the
+device: ``prefill_into`` writes new requests' rows into free slots and
+``decode_segment`` advances every slot ``seg_len`` steps. Speculative
+decoding pairs it with a draft pool (``SpecState``): ``draft_propose``
+proposes k tokens a slot and ``spec_verify`` checks them in one width-(k+1)
+``decode_verify`` forward. All of them update the arena in place and read
+nothing back to the host; the engine reads once a segment or round.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -131,6 +140,75 @@ class DecodeState:
 
     layers: tuple                 # one cache dict per decoder group
     pos: torch.Tensor             # (B,) int64
+
+    def clone(self) -> "DecodeState":
+        """A copy with its own caches (the methods update them in place)."""
+        return DecodeState(tuple({k: {n: t.clone() for n, t in sub.items()} for k, sub in g.items()}
+                                 for g in self.layers), self.pos.clone())
+
+
+@dataclasses.dataclass
+class SlotState:
+    """Slot-pool serving carry (continuous batching): the KV arena is a
+    ``DecodeState`` over a fixed ``max_slots`` batch, with per-slot vectors
+    the host scheduler only reads:
+
+      tok    (B, 1) int64 — last sampled token, not yet consumed
+      active (B,)  bool   — slot holds an admitted request
+      done   (B,)  bool   — request finished (EOS / budget); stays True
+                            until ``prefill_into`` refills the slot
+      n_gen  (B,)  int64  — tokens emitted so far (the prefill one included)
+      budget (B,)  int64  — per-request max_new_tokens
+
+    A slot advances iff ``active & ~done``; retired rows freeze ``pos``,
+    keep their KV rows and emit ``pad_id``. Every tensor is updated in
+    place."""
+
+    state: DecodeState
+    tok: torch.Tensor
+    active: torch.Tensor
+    done: torch.Tensor
+    n_gen: torch.Tensor
+    budget: torch.Tensor
+
+    @property
+    def run(self):
+        """(B,) bool — slots that advance this step."""
+        return self.active & ~self.done
+
+    def clone(self) -> "SlotState":
+        return SlotState(self.state.clone(), self.tok.clone(), self.active.clone(),
+                         self.done.clone(), self.n_gen.clone(), self.budget.clone())
+
+
+@dataclasses.dataclass
+class SpecState:
+    """Speculative-decoding carry: the target's slot pool and the draft
+    model's cache pool over the same slot grid. ``slots`` is authoritative
+    for all bookkeeping; the draft's ``pos`` is overwritten from the
+    target's at every proposal, so a rejection rolls both pools back by
+    position alone (rows beyond ``pos`` are never attended)."""
+
+    slots: SlotState
+    draft: DecodeState
+
+
+def _scatter_rows(pool_layers, new_layers, dst, src):
+    """pool[:, dst] = new[:, src] for every layer-stacked cache tensor."""
+    for pool, new in zip(pool_layers, new_layers):
+        for key, sub in pool.items():
+            for name, t in sub.items():
+                t[:, dst] = new[key][name][:, src].to(t.dtype)
+
+
+def _live_rows(slot_idx, max_slots: int, device):
+    """Prefill rows that land in the arena: (arena slots, batch rows).
+    ``slot_idx`` is host data; rows with ``slot_idx >= max_slots`` are the
+    padding of a fixed prefill batch, filtered out here (the JAX package
+    drops their scatter out of bounds)."""
+    idx = np.asarray(slot_idx, np.int64)
+    src = np.flatnonzero(idx < max_slots)
+    return (torch.from_numpy(idx[src]).to(device), torch.from_numpy(src).to(device))
 
 
 def greedy_tokens(logits):
@@ -273,6 +351,25 @@ class Model:
         adv = 1 if active is None else active.to(torch.int64)
         return self._head(params, x), DecodeState(state.layers, state.pos + adv)
 
+    def decode_verify(self, params, state: DecodeState, tokens, active=None):
+        """Verify-mode forward (speculative decoding): tokens (B, W) are the
+        current token + the draft's W-1 proposals. One batched forward
+        gives per-position logits (B, W, V): logits[:, i] are what
+        ``decode_step`` gives after consuming tokens[:, :i+1] one by one
+        (up to the rounding of products over B·W rows instead of B). The
+        W new KV rows are written at pos..pos+W-1 in place; inactive rows'
+        writes are dropped. Returns (logits, DecodeState with pos advanced
+        by W on active rows); a caller that rejects a suffix rolls ``pos``
+        back (``spec_verify``)."""
+        cfg = self.cfg
+        params = as_view(params)
+        x = embed_lookup(params.embed, tokens)
+        for g, gp, c in zip(cfg.decoder_program(), params.decoder.groups, state.layers):
+            x, _ = tf.group_verify(gp, x, g, cfg, c, state.pos, active=active)
+        W = tokens.shape[1]
+        adv = W if active is None else W * active.to(torch.int64)
+        return self._head(params, x), DecodeState(state.layers, state.pos + adv)
+
     @torch.no_grad()
     def generate(self, params, batch, max_new_tokens: int, *,
                  generator: Optional[torch.Generator] = None, temperature: float = 0.0,
@@ -331,6 +428,153 @@ class Model:
             out.append(torch.where(run, nxt, torch.full_like(nxt, pad_id)))
             tok = torch.where(run, nxt, tok[:, 0])[:, None]
         return torch.stack(out, dim=1), state
+
+
+    # -------------------------------------------------- slot-pool serving --
+    def init_slot_state(self, max_slots: int, cache_len: int, *, device="cuda") -> SlotState:
+        """Empty slot-pool arena: every slot free (active False)."""
+        state = self.init_decode_state(max_slots, cache_len, device=device)
+        dev = state.pos.device
+        z = lambda dtype: torch.zeros((max_slots,), dtype=dtype, device=dev)
+        return SlotState(state=state, tok=torch.zeros((max_slots, 1), dtype=torch.int64, device=dev),
+                         active=z(torch.bool), done=z(torch.bool), n_gen=z(torch.int64),
+                         budget=z(torch.int64))
+
+    @torch.no_grad()
+    def prefill_into(self, params, slots: SlotState, batch, slot_idx, budget,
+                     generator: Optional[torch.Generator] = None, *, cache_len: int,
+                     prompt_lens=None, temperature: float = 0.0, top_k: int = 0,
+                     eos_id: Optional[int] = None):
+        """Prefill a fixed-shape batch of new requests and write its rows
+        into the arena at ``slot_idx (Bp,)`` (host ints; rows with
+        ``slot_idx >= max_slots`` are padding and touch nothing). Samples
+        each new request's first token from the prefill logits, the whole
+        group from one ``generator``. ``cache_len`` must be the pool's.
+        Returns (tok0 (Bp,), slots), the arena updated in place."""
+        logits, new = self.prefill(params, batch, cache_len, prompt_lens=prompt_lens)
+        tok0 = sample_logits(logits[:, -1], generator, temperature, top_k)
+        budget = torch.as_tensor(budget, dtype=torch.int64, device=tok0.device)
+        done0 = budget <= 1
+        if eos_id is not None:
+            done0 = done0 | (tok0 == eos_id)
+        dst, src = _live_rows(slot_idx, slots.active.shape[0], tok0.device)
+        _scatter_rows(slots.state.layers, new.layers, dst, src)
+        slots.state.pos[dst] = new.pos[src]
+        slots.tok[dst, 0] = tok0[src]
+        slots.active[dst] = True
+        slots.done[dst] = done0[src]
+        slots.n_gen[dst] = 1
+        slots.budget[dst] = budget[src]
+        return tok0, slots
+
+    @torch.no_grad()
+    def decode_segment(self, params, slots: SlotState, generator: Optional[torch.Generator] = None,
+                       *, seg_len: int, temperature: float = 0.0, top_k: int = 0,
+                       eos_id: Optional[int] = None, pad_id: int = 0):
+        """Advance the whole pool ``seg_len`` decode steps, with nothing
+        read back to the host. Per step only ``run = active & ~done`` slots
+        consume their token, write KV and advance ``pos``; rows that hit
+        EOS or their budget flip ``done`` and coast (emitting ``pad_id``).
+        Returns (emitted (max_slots, seg_len), slots): slot b's real tokens
+        are the first ``n_gen_after[b] - n_gen_before[b]`` of ``emitted[b]``
+        (``done`` is monotone, so real tokens are a prefix)."""
+        params = as_view(params)
+        emits = []
+        for _ in range(seg_len):
+            run = slots.run
+            logits, st = self.decode_step(params, slots.state, slots.tok, active=run)
+            nxt = sample_logits(logits[:, -1], generator, temperature, top_k)
+            slots.n_gen += run
+            fin = run & (slots.n_gen >= slots.budget)
+            if eos_id is not None:
+                fin |= run & (nxt == eos_id)
+            slots.done |= fin
+            emits.append(torch.where(run, nxt, pad_id))
+            slots.tok[:, 0] = torch.where(run, nxt, slots.tok[:, 0])
+            slots.state.pos.copy_(st.pos)
+        return torch.stack(emits, dim=1), slots
+
+    # ----------------------------------------------- speculative decoding --
+    def init_spec_state(self, draft_model: "Model", max_slots: int, cache_len: int, *,
+                        device="cuda") -> SpecState:
+        """Paired empty pools: the target's slot arena and the draft's
+        cache arena over the same (max_slots, cache_len) grid."""
+        return SpecState(slots=self.init_slot_state(max_slots, cache_len, device=device),
+                         draft=draft_model.init_decode_state(max_slots, cache_len, device=device))
+
+    @torch.no_grad()
+    def prefill_state_into(self, params, pool: DecodeState, batch, slot_idx, *, cache_len: int,
+                           prompt_lens=None) -> DecodeState:
+        """``prefill_into`` for a bare cache pool (the draft half of
+        speculative decoding): no sampling, no liveness bookkeeping."""
+        _, new = self.prefill(params, batch, cache_len, prompt_lens=prompt_lens)
+        dst, src = _live_rows(slot_idx, pool.pos.shape[0], pool.pos.device)
+        _scatter_rows(pool.layers, new.layers, dst, src)
+        pool.pos[dst] = new.pos[src]
+        return pool
+
+    @torch.no_grad()
+    def draft_propose(self, params, draft: DecodeState, tok, pos, run, *, spec_k: int):
+        """Greedy k-token proposal over the draft pool. ``tok``/``pos``/
+        ``run`` come from the target's SlotState: the draft's own ``pos`` is
+        overwritten, which is how rejected speculation rolls the draft back.
+        Runs ``spec_k + 1`` steps, so the draft also consumes its last
+        proposal and its KV covers every position the target can commit.
+        Returns (proposals (B, spec_k), draft)."""
+        params = as_view(params)
+        draft.pos.copy_(pos)
+        st, tk, props = draft, tok, []
+        for _ in range(spec_k + 1):
+            logits, st = self.decode_step(params, st, tk, active=run)
+            nxt = greedy_tokens(logits[:, -1])
+            tk = torch.where(run, nxt, tk[:, 0])[:, None]
+            props.append(nxt)
+        draft.pos.copy_(st.pos)
+        return torch.stack(props[:spec_k], dim=1), draft
+
+    @torch.no_grad()
+    def spec_verify(self, params, slots: SlotState, proposals, *, eos_id: Optional[int] = None,
+                    pad_id: int = 0):
+        """One batched target forward verifies every live slot's proposals,
+        commits the accepted prefix and rolls back the rest; greedy only.
+
+        With current token w0 = ``tok`` and proposals w1..wk, the width-
+        (k+1) verify gives target greedy tokens t0..tk (t_i conditions on
+        w0..w_i); w_{i+1} is accepted iff w_{j+1} == t_j for all j <= i. With
+        ``a`` accepted the commit stream is w1..wa, t_a (the bonus token),
+        cut at the first EOS and at the remaining budget. Rollback is
+        structural: ``pos`` is set to the committed length, ``tok`` to the
+        last committed token. Returns (emitted (max_slots, k+1), slots)
+        under ``decode_segment``'s n_gen-delta protocol."""
+        B, k = proposals.shape
+        W = k + 1
+        run = slots.run
+        p0 = slots.state.pos
+        tokens = torch.cat([slots.tok, proposals], dim=1)             # (B, W)
+        logits, _ = self.decode_verify(params, slots.state, tokens, active=run)
+        t = greedy_tokens(logits)                                     # (B, W)
+        acc = torch.cumprod((proposals == t[:, :k]).to(torch.int64), dim=1).sum(dim=1)
+        idx = torch.arange(W, device=t.device)[None, :]
+        props_ext = torch.cat([proposals, torch.zeros_like(proposals[:, :1])], dim=1)
+        cand_toks = torch.where(idx < acc[:, None], props_ext, t)     # (B, W)
+        remaining = (slots.budget - slots.n_gen).clamp_min(1)
+        cand = torch.minimum(acc + 1, remaining)                      # (B,) >= 1
+        if eos_id is not None:
+            is_eos = (cand_toks == eos_id) & (idx < cand[:, None])
+            eos_hit = is_eos.any(dim=1)
+            first_eos = torch.argmax(is_eos.to(torch.int64), dim=1)  # 0 if none
+            m = torch.where(eos_hit, first_eos + 1, cand)
+        else:
+            eos_hit = torch.zeros_like(run)
+            m = cand
+        m = torch.where(run, m, 0)
+        emitted = torch.where(run[:, None] & (idx < m[:, None]), cand_toks, pad_id)
+        last = torch.gather(cand_toks, 1, (m - 1).clamp_min(0)[:, None])[:, 0]
+        slots.n_gen += m
+        slots.done |= run & (eos_hit | (slots.n_gen >= slots.budget))
+        slots.state.pos.copy_(p0 + m)                                 # structural rollback
+        slots.tok[:, 0] = torch.where(run, last, slots.tok[:, 0])
+        return emitted, slots
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -5,7 +5,8 @@ Each ``Group(repeats, period)`` of the config's stack program holds its
 parameters stacked over ``repeats`` (leading axis), as the JAX package
 does; where the JAX package runs one ``lax.scan`` over that axis, the port
 runs a Python loop over the layer index. Only the attn and mlp sublayers
-are ported; moe, mamba, rwkv and cross-attention raise.
+are ported; moe, mamba, rwkv and cross-attention raise (the verify step
+raises the JAX package's ``ValueError`` for the recurrent kinds).
 """
 
 from __future__ import annotations
@@ -135,9 +136,7 @@ def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
     return x + out, nc
 
 
-def group_decode(params, x, group: Group, cfg: ModelConfig, caches, pos, active=None):
-    """Loop over layers carrying x; each layer's cache slice is written in
-    place, so the returned caches are the ones passed in."""
+def _group_step(sub_step, params, x, group: Group, cfg: ModelConfig, caches, pos, active):
     for layer in range(group.repeats):
         lp = layer_params(params, layer)
         for i, s in enumerate(group.period):
@@ -145,8 +144,38 @@ def group_decode(params, x, group: Group, cfg: ModelConfig, caches, pos, active=
             cache = None
             if key in caches:
                 cache = {name: t[layer] for name, t in caches[key].items()}
-            x, _ = sub_decode(lp[key], x, s, cfg, cache, pos, active=active)
+            x, _ = sub_step(lp[key], x, s, cfg, cache, pos, active=active)
     return x, caches
+
+
+def group_decode(params, x, group: Group, cfg: ModelConfig, caches, pos, active=None):
+    """Loop over layers carrying x; each layer's cache slice is written in
+    place, so the returned caches are the ones passed in."""
+    return _group_step(sub_decode, params, x, group, cfg, caches, pos, active)
+
+
+def sub_verify(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
+    """Width-W verify step (speculative decoding): x (B, W, D) is the
+    current token + draft proposals. Same contract as ``sub_decode``, every
+    sublayer over all W positions in one pass. Recurrent mixers cannot roll
+    a rejected suffix back, so they are an error here."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if sub.kind == "attn":
+        out, nc = attn.verify_attention(p, h, cfg, cache, pos, window=sub.window, active=active)
+    elif sub.kind == "mlp":
+        out, nc = mlp_apply(p, h, cfg.act), None
+    elif sub.kind in ("cross_attn", "moe"):
+        raise _not_ported(sub.kind)
+    else:
+        raise ValueError(f"verify step unsupported for recurrent sublayer {sub.kind!r}: "
+                         f"SSM/RWKV state has no structural rollback")
+    return x + out, nc
+
+
+def group_verify(params, x, group: Group, cfg: ModelConfig, caches, pos, active=None):
+    """``group_decode`` at width W: each layer's cache slice is written in
+    place."""
+    return _group_step(sub_verify, params, x, group, cfg, caches, pos, active)
 
 
 def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, device):

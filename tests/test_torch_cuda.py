@@ -308,3 +308,104 @@ def test_matmul_f32_on_card_matches_f32_product(shape_a, shape_b):
     for got, want in ((da, ra), (db, rb)):
         torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-6,
                                    atol=2.0**-6 * want.abs().max().item())
+
+
+# verify against sequential decode on the card, gpt-125m in bf16, at
+# chip_smoke.py's fixed 8-slot state: products over B·W rows and over B rows
+# take other cuBLAS kernels and round at other points. chip_smoke.py's
+# serve_continuous phase measured a largest logit gap of 2.17e-2 at this
+# state (NVIDIA H100 80GB HBM3, 700 W); 0.05 leaves twice that.
+VERIFY_GAP_ATOL = 0.05
+
+
+def _gpt125m_slots(n_slots, lens, slot_idx, seed=0):
+    """gpt-125m (flash above 256) and an arena of ``n_slots`` slots with one
+    prefill batch of prompts of ``lens`` (bucket 512) written at
+    ``slot_idx``; returns (model, params, slots, batch, prompt_lens)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gpt-125m"), flash_min_len=256)
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    toks = np.random.default_rng(seed).integers(2, cfg.vocab_size, size=(len(lens), 512))
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    plens = torch.tensor(lens, device="cuda")
+    slots = model.init_slot_state(n_slots, 576, device="cuda")
+    model.prefill_into(params, slots, batch, slot_idx, [64] * len(lens), cache_len=576,
+                       prompt_lens=plens)
+    return model, params, slots, batch, plens
+
+
+@pytest.mark.cuda
+def test_verify_matches_sequential_decode_on_card():
+    """One width-5 verify against 5 sequential decode steps fed the same
+    greedy tokens, at chip_smoke.py's fixed slot state (profile_serve's
+    trace, its first 8 requests)."""
+    _card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile_serve as pserve
+    from repro_torch.models.model import build_model, greedy_tokens
+
+    model = build_model(dataclasses.replace(get_config("gpt-125m"), flash_min_len=256))
+    params = model.init(0, device="cuda")
+    slots, _, _, _ = pserve.fixed_slot_state(model, params, model, params,
+                                             pserve.trace_requests(model.cfg.vocab_size))
+    seq, tok, fed, want = slots.state.clone(), slots.tok.clone(), [], []
+    for _ in range(5):
+        fed.append(tok)
+        logits, seq = model.decode_step(params, seq, tok)
+        want.append(logits[:, 0])
+        tok = greedy_tokens(logits[:, -1])[:, None]
+    got, ver = model.decode_verify(params, slots.state.clone(), torch.cat(fed, dim=1))
+    torch.cuda.synchronize()
+    gap = (got - torch.stack(want, 1)).abs().max().item()
+    assert gap <= VERIFY_GAP_ATOL, gap
+    assert torch.equal(ver.pos, seq.pos)
+
+
+@pytest.mark.cuda
+def test_prefill_into_rows_match_a_closed_prefill_on_card():
+    """A prefill batch of 4 (one dummy row) written into slots 6, 1, 3 of an
+    8-slot arena: those rows are bit-identical to the closed prefill of the
+    same batch, every other slot stays zero."""
+    _card()
+    model, params, slots, batch, plens = _gpt125m_slots(8, [512, 300, 257, 400], [6, 1, 3, 8])
+    _, closed = model.prefill(params, batch, 576, prompt_lens=plens)
+    for arena, ref in zip(slots.state.layers, closed.layers):
+        for key, sub in arena.items():
+            for name, t in sub.items():
+                assert torch.equal(t[:, [6, 1, 3]], ref[key][name][:, :3])
+                assert not t[:, [0, 2, 4, 5, 7]].any()
+    assert slots.state.pos.tolist() == [0, 300, 0, 257, 0, 0, 512, 0]
+    assert slots.active.tolist() == [False, True, False, True, False, False, True, False]
+
+
+@pytest.mark.cuda
+def test_segment_and_verify_round_make_no_host_sync_on_card():
+    """decode_segment and a speculative round (draft_propose + spec_verify)
+    read nothing back to the host: torch.cuda's sync debug mode raises on
+    any synchronising call inside them."""
+    _card()
+    from repro_torch.launch.serve import draft_from_target
+
+    model, params, slots, batch, plens = _gpt125m_slots(4, [512, 300, 257, 400], [0, 1, 2, 3])
+    dm, dp = draft_from_target(model, params, "layers:2")
+    draft = dm.init_decode_state(4, 576, device="cuda")
+    dm.prefill_state_into(dp, draft, batch, [0, 1, 2, 3], cache_len=576, prompt_lens=plens)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_segment(params, slots, seg_len=4, eos_id=1)
+        props, _ = dm.draft_propose(dp, draft, slots.tok, slots.state.pos, slots.run, spec_k=3)
+        model.spec_verify(params, slots, props, eos_id=1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert (slots.n_gen >= 6).all()

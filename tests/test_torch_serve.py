@@ -1,5 +1,7 @@
 """The port's closed-batch engine and serving API (repro_torch.launch)
-against repro.launch on gpt-smoke in f32 with the flash path on."""
+against repro.launch on gpt-smoke in f32 with the flash path on; the
+continuous and speculative engines are in test_torch_continuous.py and
+test_torch_speculative.py."""
 
 import dataclasses
 
@@ -16,7 +18,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.data.synthetic import SyntheticCorpus
 from repro_torch.launch import api as tapi
-from repro_torch.launch.serve import GenerationEngine, _bucket_len, main
+from repro_torch.launch.serve import ContinuousEngine, GenerationEngine, _bucket_len, main
 from repro_torch.models.model import build_model
 
 
@@ -79,16 +81,28 @@ def test_sampling_params_validation_matches(kw):
         assert isinstance(e.value, ValueError) and isinstance(e.value, api.ServeError)
 
 
-def test_make_engine_modes():
+def test_make_engine_modes(capsys):
+    """Each mode builds its engine (speculative only with a draft), and the
+    CLI serves gpt-smoke continuously, with and without a layers:1 draft."""
     _, _, tm, tp = _setup()
     assert isinstance(tapi.make_engine(tm, tp, mode="closed", max_batch=2), GenerationEngine)
-    for mode in ("continuous", "speculative"):
-        with pytest.raises(tapi.CapabilityError):
-            tapi.make_engine(tm, tp, mode=mode)
+    cont = tapi.make_engine(tm, tp, mode="continuous", cache_len=32)
+    spec = tapi.make_engine(tm, tp, mode="speculative", cache_len=32, draft_model=tm,
+                            draft_params=tp)
+    assert isinstance(cont, ContinuousEngine) and cont.spec_k == 0
+    assert isinstance(spec, ContinuousEngine) and spec.spec_k == 4
+    with pytest.raises(tapi.AdmissionError):
+        tapi.make_engine(tm, tp, mode="speculative", cache_len=32)
     with pytest.raises(tapi.AdmissionError):
         tapi.make_engine(tm, tp, mode="bogus")
-    with pytest.raises(tapi.CapabilityError):
-        main(["--continuous", "--device", "cpu"])
+    args = ["--arch", "gpt-tiny", "--smoke", "--device", "cpu", "--continuous", "--requests", "6",
+            "--gen", "8", "--flash-min-len", "16"]
+    outs = main(args)
+    spec_outs = main(args + ["--speculative-draft", "layers:1", "--spec-k", "2"])
+    assert len(outs) == 6 and all(1 <= len(o) <= 8 for o in outs)
+    assert all(np.array_equal(a, b) for a, b in zip(outs, spec_outs))   # greedy: same streams
+    out = capsys.readouterr().out
+    assert "continuous on cpu" in out and "speculative: k=2" in out
 
 
 def test_bucket_len_and_corpus():
