@@ -1,26 +1,38 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's entry
-points. Only the paper's own GPT family is ported so far; the other ten
-families of the JAX package raise ``NotImplementedError``."""
+points. The paper's own GPT family and the six attention-only families
+(dense GQA, gemma3's local:global windows, MoE) are ported; the four
+families with recurrent state or a frontend raise ``NotImplementedError``."""
 
-from repro_torch.configs import gpt
+from repro_torch.configs import (codeqwen1_5_7b, gemma3_27b, gpt, granite_3_2b, internlm2_1_8b,
+                                 moonshot_v1_16b_a3b, qwen3_moe_30b_a3b)
 from repro_torch.configs.base import Group, ModelConfig, Sub
 
 GPT = {"gpt-tiny": gpt.GPT_TINY, "gpt-125m": gpt.GPT_125M, "gpt-1.3b": gpt.GPT_1_3B,
        "gpt-2.7b": gpt.GPT_2_7B, "gpt-6.7b": gpt.GPT_6_7B, "gpt-30b": gpt.GPT_30B}
 
+ARCHS = {
+    "granite-3-2b": granite_3_2b,
+    "internlm2-1.8b": internlm2_1_8b,
+    "codeqwen1.5-7b": codeqwen1_5_7b,
+    "gemma3-27b": gemma3_27b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+}
+
 # families of the JAX package that the port does not cover yet
-NOT_YET_PORTED = ("seamless-m4t-medium", "granite-3-2b", "internlm2-1.8b", "codeqwen1.5-7b",
-                  "gemma3-27b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
-                  "jamba-1.5-large-398b", "internvl2-1b", "rwkv6-1.6b")
+NOT_YET_PORTED = ("seamless-m4t-medium", "jamba-1.5-large-398b", "internvl2-1b", "rwkv6-1.6b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     arch = arch.replace("_", "-")
     if arch.startswith("gpt"):
         return gpt.SMOKE if smoke else GPT[arch]
+    if arch in ARCHS:
+        mod = ARCHS[arch]
+        return mod.SMOKE if smoke else mod.CONFIG
     if arch in NOT_YET_PORTED:
         raise NotImplementedError(f"{arch}: not yet ported to repro_torch")
     raise KeyError(f"unknown arch {arch!r}")
 
 
-__all__ = ["GPT", "NOT_YET_PORTED", "get_config", "ModelConfig", "Group", "Sub"]
+__all__ = ["ARCHS", "GPT", "NOT_YET_PORTED", "get_config", "ModelConfig", "Group", "Sub"]

@@ -127,6 +127,52 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.n_enc_layers > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic (or mostly-local) archs that run long_500k."""
+        return (self.family in ("ssm", "hybrid")
+                or self.local_global_period > 0)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + stacks), for roofline."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        h, hk, dh = self.n_heads, self.n_kv_heads, self.head_dim_
+        attn = d * (h * dh) * 2 + d * (hk * dh) * 2      # q,o + k,v
+        mlp = 3 * d * f if self.act == "swiglu" else 2 * d * f
+        moe = self.n_experts * 3 * d * f + d * self.n_experts
+        d_in = self.ssm_expand * d
+        mamba = (d * 2 * d_in + d_in * self.ssm_conv_width
+                 + d_in * self.ssm_d_state  # A
+                 + d_in * (d // 16) + d_in  # dt_proj(+bias? no), D
+                 + d_in * (d // 16 + 2 * self.ssm_d_state)
+                 + d_in * d)
+        rwkv_t = 6 * d * d + 2 * d * 64  # r,k,v,g,o,w-lora-ish
+        rwkv_c = 3 * d * f // 2 if False else 2 * d * f  # cmix uses d_ff
+        total = 0
+        for g in self.decoder_program() + self.encoder_program():
+            per = 0
+            for sub in g.period:
+                per += {"attn": attn, "cross_attn": attn, "mlp": mlp,
+                        "moe": moe, "mamba": mamba, "rwkv_tmix": rwkv_t,
+                        "rwkv_cmix": rwkv_c}[sub.kind]
+                per += d  # norm scale
+            total += g.repeats * per
+        total += v * d * (1 if self.tie_embeddings else 2)  # embed + head
+        total += d  # final norm
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts) — for 6·N·D."""
+        if not self.n_experts:
+            return self.param_count()
+        full = self.param_count()
+        d, f = self.d_model, self.d_ff
+        moe_layers = 0
+        for g in self.decoder_program():
+            moe_layers += g.repeats * sum(1 for s in g.period if s.kind == "moe")
+        inactive = moe_layers * (self.n_experts - self.experts_per_token) * 3 * d * f
+        return full - inactive
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

@@ -114,11 +114,13 @@ class CollageAdamW:
         return bucket_state(self.init(params), params, layout, self.policy,
                             sr_seed=self.sr_seed)
 
-    def step_bucketed(self, grads, bparams, bstate, *, elem_offsets=None, reduce_fn=None):
-        """One step over buckets: one fused update per bucket."""
+    def step_bucketed(self, grads, bparams, bstate, *, elem_offsets=None, reduce_fn=None,
+                      donate=False):
+        """One step over buckets: one fused update per bucket (``donate``:
+        written over the old buckets)."""
         from repro_torch.kernels.collage_update import ops as kops
         return kops.bucketed_step(self, grads, bparams, bstate, elem_offsets=elem_offsets,
-                                  reduce_fn=reduce_fn)
+                                  reduce_fn=reduce_fn, donate=donate)
 
     def step(self, grads, params, state: CollageOptState, *, metrics_partials: bool = False,
              scalars=None):

@@ -50,14 +50,25 @@
 //    levels. As many of the 5 metrics as fit in 160 KB are reduced per
 //    pass; a large tile (br 128 or 256) takes more than one pass and
 //    recomputes the update from its inputs in each (outputs are written in
-//    the first pass only, so they must not alias the inputs).
+//    the last pass only).
+//
+// In place: the outputs may be the inputs (the trainer's donated step,
+// which saves a second copy of the optimizer state). Every element is
+// read, in every pass, and then written by one thread, which reads it no
+// more after the write, so no thread ever reads a written value: the
+// read-only-cache loads stay valid.
+//
+// Sizes: n is 64-bit, every element index is size_t, and the tile count
+// (n / (br 128)) is at most 2^31 - 1, so buckets of 2^31 elements or more
+// (gemma3-27b at six layers: 3.89 B) run in one launch.
 //
 // The partials are metric-major, (5, tiles) f32; one or two more launches
 // (collage_finish_levels, collage_finish) sum each row in det_sum order
 // and write the 5 sums: bucketing.det_sum(partials, dim=0) bit for bit.
 //
 // The SR noise index is elem_offset + tile * br * 128 + element in uint32
-// (wrapping), hashed by lowbias32 as bucketing.sr_noise_bits does.
+// (wrapping: the bucket-global index mod 2^32, as the JAX package's
+// uint32 index), hashed by lowbias32 as bucketing.sr_noise_bits does.
 //
 // C entry: collage_update(...) returns cudaGetLastError() after the
 // launches.
@@ -445,7 +456,7 @@ __global__ void collage_update_block(Consts k, Ptrs p, const __nv_bfloat16* __re
             load_fields<CODE, 1>(p, base + e, x);
             float s[NSLOT] = {x[0][0], x[1][0], x[2][0], x[3][0], x[4][0], x[5][0]};
             update_one<CODE>(k, gv[0], s, pt_decay, seed, idx0 + (uint32_t)e, u, eff);
-            if (pass == 0) {
+            if (pass == npass - 1) {               // in place: after every read
 #pragma unroll
                 for (int f = 0; f < NSLOT; ++f) x[f][0] = s[f];
                 store_fields<CODE, 1>(p, base + e, x);
@@ -489,7 +500,7 @@ __global__ void collage_update_block(Consts k, Ptrs p, const __nv_bfloat16* __re
 // and y_l[n_l - 1]; collage_finish adds those into y_K[0] in det_sum's
 // order and runs the remaining levels in one block's shared memory.
 
-constexpr int MAXK = 16;                   // tiles < 2^24: K <= 13
+constexpr int MAXK = 20;                   // tiles < 2^31: K <= 20
 constexpr int LEAVES_AT_ONCE = 8;          // a lane's independent loads
 
 // y_i[idx] (idx >= 1) of row x, by one warp; the sum lands in lane 0
@@ -606,7 +617,7 @@ template <int CODE, int BR>
 cudaError_t launch_warp(const Consts& k, const Ptrs& p, const __nv_bfloat16* g, float* partials,
                         int tiles, int pt_decay, uint32_t seed, uint32_t offset,
                         cudaStream_t stream) {
-    const int grid = (tiles + WARP_BLOCK / 32 - 1) / (WARP_BLOCK / 32);
+    const int grid = (int)(((int64_t)tiles + WARP_BLOCK / 32 - 1) / (WARP_BLOCK / 32));
     collage_update_warp<CODE, BR><<<grid, WARP_BLOCK, 0, stream>>>(k, p, g, partials, tiles,
                                                                    pt_decay, seed, offset);
     return cudaGetLastError();
@@ -621,10 +632,9 @@ bool aligned16(const Ptrs& p, const void* g) {
 
 template <int CODE>
 cudaError_t launch(const Consts& k, const Ptrs& p, const __nv_bfloat16* g, float* partials,
-                   int n, int br, int pt_decay, uint32_t seed, uint32_t offset,
+                   int tiles, int br, int pt_decay, uint32_t seed, uint32_t offset,
                    cudaStream_t stream) {
     const int n_tile = br * LANES;
-    const int tiles = n / n_tile;
     if (br <= 8 && aligned16(p, g)) {
         switch (br) {
             case 1: return launch_warp<CODE, 1>(k, p, g, partials, tiles, pt_decay, seed, offset, stream);
@@ -658,23 +668,26 @@ cudaError_t launch(const Consts& k, const Ptrs& p, const __nv_bfloat16* g, float
 }  // namespace
 
 // code: 0 A, 1 B, 2 C, 3 KAHAN, 4 SR, 5 D-, 6 D. n: bucket length, a multiple
-// of br * 128; br: rows per tile (1..256). g: bf16 (n). in/out: theta, m, vhi,
-// vlo, delta, master (null where the strategy has no such field; m and vhi
-// are f32 for D-/D, master f32, the rest bf16; outputs must not alias
-// inputs). partials: null, or f32 scratch (5, n / (br * 128)), metric-major.
-// sums: null, or f32 (8 + 5 * (2048 + 32)): with partials, one or two more
+// of br * 128, with at most 2^31 - 1 tiles; br: rows per tile (1..256). g:
+// bf16 (n). in/out: theta, m, vhi, vlo, delta, master (null where the
+// strategy has no such field; m and vhi are f32 for D-/D, master f32, the
+// rest bf16; each output is either its input or disjoint from every input).
+// partials: null, or f32 scratch (5, n / (br * 128)), metric-major.
+// sums: null, or f32 (8 + 5 * (2048 + 48)): with partials, one or two more
 // launches sum the partials over the tiles into sums[0..5), using the rest
 // as scratch. consts: 16 host f32
 // values (lr, bc1, bc2, b1, c1, b2, c2, cb1, c1m, cb2, c2m, b2hi, b2lo, eps,
 // wd_upd, factor). Returns a cudaError_t.
-extern "C" int collage_update(int code, int n, int br, int pt_decay, const void* g,
+extern "C" int collage_update(int code, int64_t n, int br, int pt_decay, const void* g,
                               const void* theta, const void* m, const void* vhi, const void* vlo,
                               const void* delta, const void* master, void* theta_o, void* m_o,
                               void* vhi_o, void* vlo_o, void* delta_o, void* master_o,
                               void* partials, void* sums, const void* consts, uint32_t seed,
                               uint32_t elem_offset, void* stream) {
-    if (n <= 0 || br <= 0 || br > 256 || n % (br * LANES) != 0 || (sums && !partials))
+    if (n <= 0 || br <= 0 || br > 256 || n % (br * LANES) != 0 || (sums && !partials)
+        || n / (br * LANES) > INT32_MAX)
         return (int)cudaErrorInvalidValue;
+    const int tiles = (int)(n / (br * LANES));
     Consts k = *static_cast<const Consts*>(consts);
     Ptrs p = {{theta, m, vhi, vlo, delta, master}, {theta_o, m_o, vhi_o, vlo_o, delta_o, master_o}};
     const __nv_bfloat16* gp = static_cast<const __nv_bfloat16*>(g);
@@ -682,18 +695,18 @@ extern "C" int collage_update(int code, int n, int br, int pt_decay, const void*
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     switch (code) {
-        case A: err = launch<A>(k, p, gp, part, n, br, pt_decay, seed, elem_offset, s); break;
-        case B: err = launch<B>(k, p, gp, part, n, br, pt_decay, seed, elem_offset, s); break;
-        case C: err = launch<C>(k, p, gp, part, n, br, pt_decay, seed, elem_offset, s); break;
-        case KAHAN: err = launch<KAHAN>(k, p, gp, part, n, br, pt_decay, seed, elem_offset, s); break;
-        case SR: err = launch<SR>(k, p, gp, part, n, br, pt_decay, seed, elem_offset, s); break;
-        case DMINUS: err = launch<DMINUS>(k, p, gp, part, n, br, pt_decay, seed, elem_offset, s); break;
-        case D: err = launch<D>(k, p, gp, part, n, br, pt_decay, seed, elem_offset, s); break;
+        case A: err = launch<A>(k, p, gp, part, tiles, br, pt_decay, seed, elem_offset, s); break;
+        case B: err = launch<B>(k, p, gp, part, tiles, br, pt_decay, seed, elem_offset, s); break;
+        case C: err = launch<C>(k, p, gp, part, tiles, br, pt_decay, seed, elem_offset, s); break;
+        case KAHAN: err = launch<KAHAN>(k, p, gp, part, tiles, br, pt_decay, seed, elem_offset, s); break;
+        case SR: err = launch<SR>(k, p, gp, part, tiles, br, pt_decay, seed, elem_offset, s); break;
+        case DMINUS: err = launch<DMINUS>(k, p, gp, part, tiles, br, pt_decay, seed, elem_offset, s); break;
+        case D: err = launch<D>(k, p, gp, part, tiles, br, pt_decay, seed, elem_offset, s); break;
         default: return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess || !sums) return (int)err;
     float* out = static_cast<float*>(sums);
-    return (int)finish(part, n / (br * LANES), out + 8, out, s);
+    return (int)finish(part, tiles, out + 8, out, s);
 }
 
 extern "C" const char* collage_update_error_string(int err) {

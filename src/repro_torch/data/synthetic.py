@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class SyntheticCorpus:
@@ -52,12 +54,15 @@ class SyntheticCorpus:
         return {"tokens": toks, "labels": toks}
 
 
-def make_batch_fn(cfg, shape, seed=0, device="cpu"):
+def make_batch_fn(cfg, shape, seed=0, device="cuda"):
     """step → batch ({"tokens", "labels"} int64 tensors on ``device``) for a
-    (ModelConfig, ShapeConfig) pair. Frontend inputs (VLM/audio) are not
+    (ModelConfig, ShapeConfig) pair. ``device`` defaults to the card, as
+    every entry point of the port (``device.resolve_device``: no card, no
+    batches); the CPU is asked for. Frontend inputs (VLM/audio) are not
     ported."""
     if cfg.family in ("vlm", "audio") or cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: frontend batches not yet ported")
+    device = resolve_device(device)
     corpus = SyntheticCorpus(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=seed)
 
     def fn(step: int, host_id: int = 0, n_hosts: int = 1):

@@ -3,7 +3,8 @@
 Entry points default to ``device="cuda"`` and raise when no card is
 present: the port never falls back to the CPU on its own. The CPU runs
 only when a caller asks for it (the tests do), and then every kernel
-wrapper takes its plain PyTorch version.
+wrapper takes its plain PyTorch version. ``meta`` holds shapes and no data
+(``Model.init(device="meta")`` checks a full-size configuration's tree).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r} (cuda | cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (cuda | cpu | meta)")
     return dev
 
 

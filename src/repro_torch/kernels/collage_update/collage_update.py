@@ -11,11 +11,15 @@ on a CPU tensor it runs the plain version ``ref.collage_bucket_update_plain``.
 Nothing else selects the path. ``collage_bucket_update.launches`` counts
 kernel launches.
 
-The update is functional, as the JAX one: new state tensors are allocated
-and the inputs are left as they were (the kernel needs outputs that do not
-alias its inputs: with large tiles it re-reads them). ``launch`` is the
-kernel's launch alone, without the sum over the tiles: ``chip_smoke.py``
-times the two apart.
+The update is functional by default, as the JAX one: new state tensors
+are allocated and the inputs are left as they were. With ``in_place`` the
+kernel writes the new state over the old (the trainer's donated step: one
+copy of the optimizer state instead of two, what lets gemma3-27b's 3.89 B
+element bucket fit on an 80 GB card). ``launch`` is the kernel's launch
+with ``finish=False`` leaving out the sum over the tiles: ``chip_smoke.py``
+times the two apart. Buckets of 2^31 elements or more take one launch:
+the kernel indexes in 64 bits; the SR index stays the JAX package's
+uint32 ``elem_offset + i``, wrapping mod 2^32.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ SUBLANES = 8
 BLOCK_ROWS = 256  # rows per tile at most
 N_METRICS = 5     # metric partials: dot, un2, en2, lost, gn2
 FINISH_ROWS = 2048  # the kernel's sum over the tiles ends in one block of this many rows
+MAX_TILES = 2**31 - 1   # the kernel's tile count is a C int
 
 KERNEL_SOURCE = "collage_update/collage_update.cu"
 
@@ -75,14 +80,15 @@ def choose_block_rows(rows: int, block_rows: int = BLOCK_ROWS) -> int:
 
 
 def kernel_grid(n: int, block_rows: int = BLOCK_ROWS) -> tuple:
-    """(tile rows, tiles) of the kernel's launch over an n-element bucket.
-    The kernel takes n as a C ``int`` and indexes with it, so a bucket of
-    2^31 elements or more is refused here rather than wrapped."""
-    if n >= 2**31:
-        raise ValueError(f"bucket of {n} elements: the collage_update kernel takes fewer than "
-                         f"2^31; cap the bucket size (BucketPolicy.max_bucket_elems)")
+    """(tile rows, tiles) of the kernel's launch over an n-element bucket
+    (Python ints: no 32-bit product). The kernel takes n as a 64-bit int
+    and at most ``MAX_TILES`` tiles."""
     br = choose_block_rows(n // LANES, block_rows)
-    return br, n // LANES // br
+    tiles = n // LANES // br
+    if tiles > MAX_TILES:
+        raise ValueError(f"bucket of {n} elements: {tiles} tiles of {br} rows, the kernel "
+                         f"takes at most {MAX_TILES}")
+    return br, tiles
 
 
 def _library():
@@ -90,9 +96,10 @@ def _library():
 
     lib = build.load(KERNEL_SOURCE)
     fn = lib.collage_update
-    # code, n, br, pt_decay; g, 6 inputs, 6 outputs, partials, sums,
-    # constants; seed, elem_offset; stream
-    fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 16
+    # code, n (64-bit), br, pt_decay; g, 6 inputs, 6 outputs, partials,
+    # sums, constants; seed, elem_offset; stream
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_void_p] * 16
                    + [ctypes.c_uint32] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.collage_update_error_string.argtypes = [ctypes.c_int]
@@ -115,37 +122,49 @@ def _check(state, g, strategy):
 
 def collage_bucket_update(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *,
                           b1=0.9, b2=0.999, eps=1e-8, wd=0.0, strategy="C", pt_decay=False,
-                          compute_metrics=False, block_rows=BLOCK_ROWS):
+                          compute_metrics=False, block_rows=BLOCK_ROWS, in_place=False):
     """Fused update of ONE flat bucket → ``(new_state, partials)``; partials
     is a 5-tuple of f32 0-dim tensors or None. ``lr``/``bc1``/``bc2`` are
     host scalars (f32 values). ``seed`` and ``elem_offset`` (SR) index the
-    counter-based noise stream bucket-globally."""
+    counter-based noise stream bucket-globally. ``in_place``: the new state
+    is written over ``state``'s tensors, which are returned."""
     from repro_torch.kernels.collage_update import ref
 
     _check(state, g, strategy)
     if g.device.type == "cpu":
-        return ref.collage_bucket_update_plain(
+        out, parts = ref.collage_bucket_update_plain(
             state, g, lr, bc1, bc2, seed, elem_offset, b1=b1, b2=b2, eps=eps, wd=wd,
             strategy=strategy, pt_decay=pt_decay, compute_metrics=compute_metrics,
             block_rows=block_rows, tiled_metrics=True)
+        return (copy_into(state, out) if in_place else out), parts
     if g.device.type != "cuda":
         raise ValueError(f"collage_bucket_update: unsupported device {g.device}")
     out, sums = launch(state, g, lr, bc1, bc2, seed, elem_offset, b1=b1, b2=b2, eps=eps, wd=wd,
                        strategy=strategy, pt_decay=pt_decay, compute_metrics=compute_metrics,
-                       block_rows=block_rows)
+                       block_rows=block_rows, in_place=in_place)
     collage_bucket_update.launches += 1
     return out, None if sums is None else tuple(sums[i] for i in range(N_METRICS))
 
 
+def copy_into(state: dict, new: dict) -> dict:
+    """Write ``new``'s tensors over ``state``'s (the plain version's in-place
+    update) and return ``state``."""
+    for f, t in new.items():
+        state[f].copy_(t)
+    return state
+
+
 def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9, b2=0.999,
            eps=1e-8, wd=0.0, strategy="C", pt_decay=False, compute_metrics=False,
-           block_rows=BLOCK_ROWS, finish=True):
+           block_rows=BLOCK_ROWS, finish=True, in_place=False):
     """The kernel's launch on CUDA tensors → ``(new_state, sums)``: sums the
     (5,) metric sums, ``det_sum`` over the tiles of the per-tile sums (None
     without metrics, or with ``finish=False``, which leaves out the launches
-    that sum over the tiles). Counts nothing: ``collage_bucket_update``
-    counts its own launches."""
+    that sum over the tiles). ``in_place``: the outputs are ``state``'s own
+    tensors. Counts nothing: ``collage_bucket_update`` counts its own
+    launches."""
     from repro_torch.core import bucketing
+    from repro_torch.kernels import build
     from repro_torch.kernels.collage_update import ref
 
     _check(state, g, strategy)
@@ -167,7 +186,8 @@ def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9,
     n = g.shape[0]
     br, grid = kernel_grid(n, block_rows)
     lib = _library()
-    out = {f: torch.empty_like(state[f]) for f in state_fields(strategy)}
+    out = {f: state[f] if in_place else torch.empty_like(state[f])
+           for f in state_fields(strategy)}
     consts = ref.update_constants(b1, b2, eps, wd, pt_decay, lr)
     consts.update(lr=float(np.float32(lr)), bc1=float(np.float32(bc1)),
                   bc2=float(np.float32(bc2)))
@@ -176,7 +196,7 @@ def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9,
     if compute_metrics:
         partials = torch.empty((N_METRICS, grid), dtype=torch.float32, device=g.device)
         if finish:          # the 5 sums, then from 8 the scratch of the sum over the tiles
-            sums = torch.empty((8 + N_METRICS * (FINISH_ROWS + 32),), dtype=torch.float32,
+            sums = torch.empty((8 + N_METRICS * (FINISH_ROWS + 48),), dtype=torch.float32,
                                device=g.device)
     ptr = lambda d, f: d[f].data_ptr() if f in d else None
     stream = torch.cuda.current_stream(g.device).cuda_stream

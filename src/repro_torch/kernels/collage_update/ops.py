@@ -41,16 +41,19 @@ STRATEGY_CODE = {
 _FIELD_ROLE = {"m": "m", "vhi": "vhi", "vlo": "vlo", "delta": "delta", "master": "master"}
 
 
-def _update_one_bucket(opt, state_dict, g, lr, bc1, bc2, seed, elem_offset=None):
+def _update_one_bucket(opt, state_dict, g, lr, bc1, bc2, seed, elem_offset=None,
+                       donate=False):
     """Update of one flat bucket: the kernel wrapper, or the plain version
-    with fast metric sums."""
+    with fast metric sums; ``donate`` writes the new state over the old."""
     code = STRATEGY_CODE[opt.policy.strategy]
     kw = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, wd=opt.wd, strategy=code,
               pt_decay=(opt.policy.wd_mode == "pytorch"), compute_metrics=opt.compute_metrics)
     if opt.use_fused_kernel:
-        return cu.collage_bucket_update(state_dict, g, lr, bc1, bc2, seed, elem_offset, **kw)
-    return cu_ref.collage_bucket_update_plain(state_dict, g, lr, bc1, bc2, seed, elem_offset,
-                                              tiled_metrics=False, **kw)
+        return cu.collage_bucket_update(state_dict, g, lr, bc1, bc2, seed, elem_offset,
+                                        in_place=donate, **kw)
+    out, parts = cu_ref.collage_bucket_update_plain(state_dict, g, lr, bc1, bc2, seed,
+                                                    elem_offset, tiled_metrics=False, **kw)
+    return (cu.copy_into(state_dict, out) if donate else out), parts
 
 
 def _zeros5(device):
@@ -90,7 +93,7 @@ def _scalars(opt, t: int):
 
 def bucketed_step(opt, grads, bparams: bucketing.BucketedParams,
                   bstate: bucketing.BucketedOptState, *, elem_offsets=None, reduce_fn=None,
-                  scalars=None):
+                  scalars=None, donate=False):
     """One optimizer step over persistent buckets → (new BucketedParams, new
     BucketedOptState, StepMetrics).
 
@@ -98,7 +101,10 @@ def bucketed_step(opt, grads, bparams: bucketing.BucketedParams,
     ``elem_offsets`` (SR): per-bucket element offsets of this caller's shard
     in the full bucket. ``reduce_fn``: ``(bucket index, grad) → grad`` hook
     run just before each bucket's update. ``scalars``: (lr, bc1, bc2) to use
-    in place of ``_scalars`` (parity tests feed the JAX package's)."""
+    in place of ``_scalars`` (parity tests feed the JAX package's).
+    ``donate``: the new params and state are written over ``bparams``' and
+    ``bstate``'s buckets (the JAX package's donated step), which then hold
+    the new values; the old ones are gone."""
     s = opt.policy.strategy
     layout = bparams.layout
     gdata = grads.data if isinstance(grads, bucketing.BucketedParams) else tuple(grads)
@@ -120,7 +126,8 @@ def bucketed_step(opt, grads, bparams: bucketing.BucketedParams,
         seed = int(bucketing.fold_seed(bstate.rng, t, i)) if s is Strategy.SR else None
         off = elem_offsets[i] if elem_offsets is not None else None
         g_i = gdata[i] if reduce_fn is None else reduce_fn(i, gdata[i])
-        out, part = _update_one_bucket(opt, sd, g_i, lr, bc1, bc2, seed, elem_offset=off)
+        out, part = _update_one_bucket(opt, sd, g_i, lr, bc1, bc2, seed, elem_offset=off,
+                                       donate=donate)
         for f in fields:
             new[f].append(out[f])
         if part is not None:

@@ -63,13 +63,16 @@ def _f(x, like):
 def collage_bucket_update_plain(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *,
                                 b1=0.9, b2=0.999, eps=1e-8, wd=0.0, strategy="C",
                                 pt_decay=False, compute_metrics=False,
-                                block_rows=BLOCK_ROWS, tiled_metrics=True):
+                                block_rows=BLOCK_ROWS, tiled_metrics=True, return_tiles=False):
     """Update of ONE flat bucket. ``state`` maps the strategy's fields
     (``state_fields``) to 1-D tensors of length N (N % 128 == 0). Returns
     ``(new_state, partials)``: partials is the 5-tuple of f32 0-dim tensors
     (⟨Δθ,Δθ̂⟩, ‖Δθ‖², ‖Δθ̂‖², #lost, ‖g‖²) or None. ``tiled_metrics`` mirrors
     the kernel's per-tile ``det_sum`` partials bit for bit; False uses plain
-    ``torch.sum`` (equal up to summation order)."""
+    ``torch.sum`` (equal up to summation order). ``return_tiles``: partials
+    is the kernel's per-tile (tiles, 5) f32 partials instead, before the sum
+    over the tiles (a bucket updated in chunks of whole tiles gives the
+    whole bucket's tiles, concatenated)."""
     fields = state_fields(strategy)
     if set(state) != set(fields):
         raise ValueError(f"state fields {sorted(state)} vs {fields}")
@@ -150,7 +153,9 @@ def collage_bucket_update_plain(state: dict, g, lr, bc1, bc2, seed=None, elem_of
         new["theta"] = new_p32.to(torch.bfloat16)
 
     partials = None
-    if compute_metrics:
+    if compute_metrics and return_tiles:
+        partials = metric_tiles(upd32, eff, g32, block_rows)
+    elif compute_metrics:
         partials = metric_partials(upd32, eff, g32, block_rows) if tiled_metrics \
             else metric_partials_fast(upd32, eff, g32)
     return new, partials
@@ -165,13 +170,17 @@ def metric_partials_fast(u, e, g32):
     return tuple(torch.sum(x) for x in _metric_values(u, e, g32))
 
 
-def metric_partials(u, e, g32, block_rows=BLOCK_ROWS):
-    """Per-tile ``det_sum`` over the kernel's (br, 128) tiles, then
-    ``det_sum`` over the tiles in order: the kernel's partials bit for bit."""
+def metric_tiles(u, e, g32, block_rows=BLOCK_ROWS):
+    """Per-tile ``det_sum`` over the kernel's (br, 128) tiles → (tiles, 5)."""
     rows = u.shape[0] // LANES
     br = choose_block_rows(rows, block_rows)
     grid = rows // br
-    tiles = torch.stack([bucketing.det_sum(x.reshape(grid, br * LANES), dim=1)
-                         for x in _metric_values(u, e, g32)], dim=1)      # (grid, 5)
-    sums = bucketing.det_sum(tiles, dim=0)
+    return torch.stack([bucketing.det_sum(x.reshape(grid, br * LANES), dim=1)
+                        for x in _metric_values(u, e, g32)], dim=1)
+
+
+def metric_partials(u, e, g32, block_rows=BLOCK_ROWS):
+    """Per-tile ``det_sum`` over the kernel's (br, 128) tiles, then
+    ``det_sum`` over the tiles in order: the kernel's partials bit for bit."""
+    sums = bucketing.det_sum(metric_tiles(u, e, g32, block_rows), dim=0)
     return tuple(sums[i] for i in range(5))

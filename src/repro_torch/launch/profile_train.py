@@ -1,7 +1,9 @@
-"""Where the time of the gpt-125m train step goes, on the card.
+"""Where the time of a train step goes, on the card.
 
-Runs the training workload of ``chip_smoke.py`` (gpt-125m, Collage-plus C,
-bucketed, fused update, flash_min_len 256, B 8 × L 512) for 3 warm-up
+Runs the training workload of ``chip_smoke.py`` (by default gpt-125m,
+Collage-plus C, bucketed, fused update, flash_min_len 256, B 8 × L 512;
+``--arch``/``--layers``/``--batch``/``--seq-len`` give phase 8's families
+at their cut depth, with the donated step the launcher uses) for 3 warm-up
 steps, then ``--steps`` steps under ``torch.profiler``, and prints the wall
 time, the device's busy share of it, and device time by kernel, grouped
 (the port's kernels, bf16 and f32 GEMMs, softmax, the rest) and by name.
@@ -9,11 +11,13 @@ The profiler's own host cost stretches the wall (and so the idle share);
 the device time per step is what it measures well.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train
+  PYTHONPATH=src python -m repro_torch.launch.profile_train --arch qwen3-moe-30b-a3b --layers 2
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -22,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.profile_serve import device_summary, is_gemm
+from repro_torch.models.model import build_model
 from repro_torch.train import train_loop
 
 
@@ -35,8 +40,9 @@ def _group(name: str) -> str:
     if is_gemm(n):
         if "sgemm" in n or "f32f32" in n:
             return "f32 GEMM (cuBLAS, CUDA cores)"
-        # the lm_head products: vocab 50257 is odd, so their rows are not
-        # 16-byte aligned and cuBLAS runs its alignment-1 kernels
+        # the lm_head products of an odd vocab (gpt-125m's 50257,
+        # granite's 49155): rows not 16-byte aligned, so cuBLAS runs its
+        # alignment-1 kernels
         return "bf16 GEMM, unaligned (lm_head)" if "align1" in n else "bf16 GEMM (cuBLAS)"
     if "softmax" in n:
         return "softmax / log_softmax"
@@ -46,12 +52,19 @@ def _group(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--arch", default="gpt-125m")
+    ap.add_argument("--layers", type=int, default=None, help="depth cut (default: the config's)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=512)
     args = ap.parse_args(argv)
     targs = tlaunch.parser().parse_args([
-        "--arch", "gpt-125m", "--precision", "C", "--bucketed", "--fused-kernel",
-        "--flash-min-len", "256", "--seq-len", "512", "--batch", "8",
+        "--arch", args.arch, "--precision", "C", "--bucketed", "--fused-kernel",
+        "--flash-min-len", "256", "--seq-len", str(args.seq_len), "--batch", str(args.batch),
         "--steps", str(3 + args.steps), "--warmup", "2"])
-    _, model, opt, step_fn, batch_fn, dev = tlaunch.build(targs)
+    cfg, model, opt, step_fn, batch_fn, dev = tlaunch.build(targs)
+    if args.layers is not None:
+        model = build_model(dataclasses.replace(cfg, n_layers=args.layers, flash_min_len=256))
+        step_fn = train_loop.make_train_step(model, opt, flash_min_len=256, donate=True)
     state = train_loop.init_state(model, opt, targs.seed, device=dev)
     batches = [batch_fn(i) for i in range(3 + args.steps)]
     for b in batches[:3]:
@@ -65,6 +78,8 @@ def main(argv=None):
         wall_us = (time.perf_counter() - t0) * 1e6
     summary = device_summary(prof, wall_us, _group)
     summary["steps"] = args.steps
+    summary["arch"], summary["layers"] = args.arch, model.cfg.n_layers
+    summary["peak_bytes"] = torch.cuda.max_memory_allocated()
     summary["loss"] = float(metrics["loss"])
     print(json.dumps(summary, indent=1))
     return summary

@@ -17,7 +17,9 @@ path: builds the model, the Collage optimizer and the train step, and runs
 ``--precision`` (A, B, C, KAHAN, SR, D-MW, D), with each leaf's EDQ
 partials from the CUDA EDQ kernel; ``--fused-kernel`` runs the CUDA Collage
 update instead (one launch per bucket per step; on the tree layout the
-buckets are rebuilt every step). ``--flash-min-len N`` runs the flash
+buckets are rebuilt every step). The bucketed step writes the new state
+over the old buckets (a donated step: one copy of the optimizer state on
+the card). ``--flash-min-len N`` runs the flash
 forward and backward kernels for sequences of at least N. ``--remat``
 rematerialises each decoder layer in the backward pass. On the CPU the
 same flags run the kernels' plain versions.
@@ -77,7 +79,8 @@ def build(args):
     step_fn = train_loop.make_train_step(model, opt, microbatch=args.microbatch,
                                          remat=args.remat,
                                          grad_compression=args.grad_compression,
-                                         flash_min_len=args.flash_min_len)
+                                         flash_min_len=args.flash_min_len,
+                                         donate=args.bucketed)
     batch_fn = make_batch_fn(cfg, shape, seed=args.seed, device=dev)
     return cfg, model, opt, step_fn, batch_fn, dev
 

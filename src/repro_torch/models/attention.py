@@ -5,8 +5,12 @@ GQA is computed with grouped einsums — KV heads are never materialized
 repeated. Softmax in fp32. Above ``cfg.flash_min_len`` every causal
 self-attention sublayer dispatches to the flash kernel
 (``kernel_flash_attention``); the masked path stays as the short-sequence
-implementation and the test oracle. ``verify_attention`` is the
-speculative verify step. ``banded_attention`` and the cross-attention
+implementation and the test oracle. Below it, windowed layers (gemma3's
+local ones) take ``banded_attention`` (O(L·W): each block of W queries
+scores its own and the previous key block) under ``attention_impl``
+"banded" or "flash", and causal layers ``flash_attention`` (the JAX
+package's blocked online softmax, in torch) under "flash".
+``verify_attention`` is the speculative verify step. The cross-attention
 paths are not ported yet.
 """
 
@@ -93,6 +97,92 @@ def full_attention(p, x, cfg, *, causal=True, window=0, positions=None):
     scores = scores.masked_fill(mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, v, cfg, x.dtype)
+    return matmul(out, p["wo"])
+
+
+def banded_attention(p, x, cfg, *, window, positions=None):
+    """O(L·W) local causal attention: queries in blocks of W attend to their
+    own and the previous key block. Needs L % W == 0 (the JAX package
+    asserts it; the launcher pads)."""
+    B, L, _ = x.shape
+    W = window
+    if L % W:
+        raise ValueError(f"banded_attention needs L % window == 0: L {L}, window {W}")
+    nb = L // W
+    if positions is None:
+        positions = _positions(B, L, x.device)
+    q, k, v = _qkv(p, x, x, cfg, positions, positions)
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g = h // hk
+    kb = k.reshape(B, nb, W, hk, dh)
+    vb = v.reshape(B, nb, W, hk, dh)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1), kb], dim=2)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1), vb], dim=2)
+    # one batched product over (B, block, kv head) of the group's (g·W, dh) queries
+    qg = q.reshape(B, nb, W, hk, g, dh).permute(0, 1, 3, 4, 2, 5).reshape(B * nb * hk, g * W, dh)
+    kt = k2.permute(0, 1, 3, 4, 2).reshape(B * nb * hk, dh, 2 * W)
+    scores = (matmul_f32(qg, kt) * (dh**-0.5)).reshape(B, nb, hk, g, W, 2 * W)
+    qi = torch.arange(W, device=x.device)[:, None] + W          # position in the 2W window
+    kj = torch.arange(2 * W, device=x.device)[None, :]
+    mask = (kj > qi) | (kj <= qi - W)                            # causal and band
+    first = (torch.arange(nb, device=x.device) == 0)[:, None, None]   # block 0: no previous
+    m = torch.where(first, (mask | (kj < W))[None], mask[None])  # (nb, W, 2W)
+    scores = scores.masked_fill(m[None, :, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    pv = probs.to(x.dtype).reshape(B * nb * hk, g * W, 2 * W)
+    vv = v2.permute(0, 1, 3, 2, 4).reshape(B * nb * hk, 2 * W, dh)
+    out = matmul_f32(pv, vv).to(x.dtype).reshape(B, nb, hk, g, W, dh)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, L, h * dh)
+    return matmul(out, p["wo"])
+
+
+def flash_attention(p, x, cfg, *, causal=True, window=0, positions=None, q_chunk=1024,
+                    kv_chunk=1024):
+    """Memory-bounded attention in torch: an online softmax over key chunks
+    for each query chunk, every key chunk visited as in the JAX package's
+    scan (a fully masked one is cancelled by the next correction), so
+    O(q_chunk·kv_chunk) score memory instead of O(L²)."""
+    B, L, _ = x.shape
+    q_chunk, kv_chunk = min(q_chunk, L), min(kv_chunk, L)
+    if L % q_chunk or L % kv_chunk:
+        raise ValueError(f"flash_attention needs L % chunk == 0: L {L}, chunks "
+                         f"{q_chunk}, {kv_chunk}")
+    if positions is None:
+        positions = _positions(B, L, x.device)
+    q, k, v = _qkv(p, x, x, cfg, positions, positions)
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    g = h // hk
+    dev = x.device
+    outs = []
+    for qi in range(L // q_chunk):
+        qb = q[:, qi * q_chunk:(qi + 1) * q_chunk].reshape(B, q_chunk, hk, g, dh)
+        qb = qb.permute(0, 2, 3, 1, 4).reshape(B * hk, g * q_chunk, dh)
+        m = torch.full((B, hk, g, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, hk, g, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, hk, g, q_chunk, dh), dtype=torch.float32, device=dev)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
+        for kj in range(L // kv_chunk):
+            sl = slice(kj * kv_chunk, (kj + 1) * kv_chunk)
+            kt = k[:, sl].permute(0, 2, 3, 1).reshape(B * hk, dh, kv_chunk)
+            s = (matmul_f32(qb, kt) * (dh**-0.5)).reshape(B, hk, g, q_chunk, kv_chunk)
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+            bad = torch.zeros((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
+            if causal:
+                bad |= kpos > qpos
+            if window:
+                bad |= kpos <= qpos - window
+            s = s.masked_fill(bad, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p_ = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p_.sum(dim=-1)
+            vv = v[:, sl].permute(0, 2, 1, 3).reshape(B * hk, kv_chunk, dh)
+            pv = matmul_f32(p_.to(x.dtype).reshape(B * hk, g * q_chunk, kv_chunk), vv)
+            acc = acc * corr[..., None] + pv.reshape(B, hk, g, q_chunk, dh)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, h * dh))
+    out = torch.cat(outs, dim=1).to(x.dtype)
     return matmul(out, p["wo"])
 
 

@@ -17,6 +17,8 @@ def dense_init(gen, shape, dtype, scale=None):
     """N(0, 1) · scale, drawn in f32 on ``gen``'s device; ``shape`` ends in
     (d_in, d_out) and may lead with a stack axis. Default scale d_in^-1/2."""
     scale = scale if scale is not None else shape[-2] ** -0.5
+    if gen.device.type == "meta":                    # shapes only
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (w * scale).to(dtype)
 

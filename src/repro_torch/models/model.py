@@ -1,6 +1,6 @@
 """Top-level Model API: init / forward / token_ce / loss / prefill /
-decode_step / generate, the port of ``repro.models.model`` for the dense
-families.
+decode_step / generate, the port of ``repro.models.model`` for the
+attention-only families.
 
 Parameters hold the JAX package's stacked tree under the same names:
 ``embed`` (V, D), ``decoder.groups.<g>.sub<i>.<name>`` with a leading layer
@@ -231,6 +231,13 @@ def sample_logits(logits, generator: Optional[torch.Generator], temperature: flo
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+class _MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device (which has
+    none): ``init`` then makes the tree's shapes and no numbers."""
+
+    device = torch.device("meta")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -239,12 +246,14 @@ class Model:
     def init(self, seed: int = 0, *, device="cuda") -> ParamTree:
         """Random parameters from ``seed`` (a ``torch.Generator`` on the
         device). Same shapes and scales as the JAX package's init, not the
-        same numbers: ``jax.random`` streams are not reproducible here."""
+        same numbers: ``jax.random`` streams are not reproducible here.
+        ``device="meta"``: the shapes only."""
         cfg = self.cfg
         if cfg.family in ("vlm", "audio", "encdec"):   # frontends are not ported
             raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} not yet ported")
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = _MetaGenerator() if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(seed)
         dtype = torch_dtype(cfg.dtype)
         tree = {
             "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype, scale=0.02),
@@ -272,15 +281,17 @@ class Model:
     # ------------------------------------------------------------ forward --
     def forward(self, params, batch, remat: str = "none"):
         """Full-sequence logits. Returns (logits fp32, aux_loss); aux_loss is
-        the MoE balance loss of the JAX package, 0 until MoE is ported.
+        the MoE balance loss summed over the groups (0 without MoE).
         ``remat`` ("none", "full", "dots") rematerialises each decoder
         layer in the backward pass (``transformer.group_apply``)."""
         cfg = self.cfg
         params = as_view(params)
         x = embed_lookup(params.embed, batch["tokens"])
+        aux = torch.zeros((), dtype=ACC, device=x.device)
         for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
-            x = tf.group_apply(gp, x, g, cfg, remat=remat)
-        return self._head(params, x), torch.zeros((), dtype=ACC, device=x.device)
+            x, a = tf.group_apply(gp, x, g, cfg, remat=remat)
+            aux = aux + a
+        return self._head(params, x), aux
 
     @staticmethod
     def token_ce(logits, labels):

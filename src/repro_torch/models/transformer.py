@@ -4,9 +4,11 @@
 Each ``Group(repeats, period)`` of the config's stack program holds its
 parameters stacked over ``repeats`` (leading axis), as the JAX package
 does; where the JAX package runs one ``lax.scan`` over that axis, the port
-runs a Python loop over the layer index. Only the attn and mlp sublayers
-are ported; moe, mamba, rwkv and cross-attention raise (the verify step
-raises the JAX package's ``ValueError`` for the recurrent kinds).
+runs a Python loop over the layer index. The attn, mlp and moe sublayers
+are ported; mamba, rwkv and cross-attention raise (the verify step raises
+the JAX package's ``ValueError`` for the recurrent kinds). ``sub_apply``
+and ``group_apply`` return the MoE aux loss beside the activations, summed
+over the group's layers as the JAX package's scan carries it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import Group, ModelConfig, Sub
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import dense_init, mlp_apply, rms_norm, rms_norm_init
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import ACC, dense_init, mlp_apply, rms_norm, rms_norm_init
 
 
 def _not_ported(kind):
@@ -41,6 +44,8 @@ def sub_init(gen, sub: Sub, cfg: ModelConfig, dtype, repeats: int):
         else:
             p.update(w_in=dense_init(gen, (repeats, d, f), dtype),
                      w_out=dense_init(gen, (repeats, f, d), dtype))
+    elif sub.kind == "moe":
+        p.update(moe_lib.moe_init(gen, cfg, dtype, repeats))
     else:
         raise _not_ported(sub.kind)
     return p
@@ -59,24 +64,33 @@ def layer_params(group_params, layer: int) -> dict:
 
 # ---------------------------------------------------------------- forward --
 def sub_apply(p, x, sub: Sub, cfg: ModelConfig, positions=None):
-    """Pre-norm residual sublayer: x + f(rms_norm(x))."""
+    """Pre-norm residual sublayer: (x + f(rms_norm(x)), aux) where aux is
+    the MoE aux loss (f32 scalar), None for the other kinds.
+    Attention takes the flash kernels above ``cfg.flash_min_len``, else the
+    config's ``attention_impl``: "banded" for windowed layers, "flash" (the
+    blocked online softmax in torch) for causal ones, "masked" otherwise."""
+    aux = None
     h = rms_norm(x, p["norm"], cfg.norm_eps)
+    impl = cfg.attention_impl
     if sub.kind == "attn":
         if sub.causal and attn.use_flash(cfg, x.shape[1]):
             out = attn.kernel_flash_attention(p, h, cfg, causal=True, window=sub.window,
                                               positions=positions)
-        elif sub.causal and (cfg.attention_impl == "flash"
-                             or (sub.window and cfg.attention_impl == "banded")):
-            raise NotImplementedError(
-                f"attention_impl {cfg.attention_impl!r}: not yet ported to repro_torch")
+        elif sub.window and impl in ("banded", "flash") and sub.causal:
+            out = attn.banded_attention(p, h, cfg, window=sub.window, positions=positions)
+        elif impl == "flash" and sub.causal:
+            out = attn.flash_attention(p, h, cfg, causal=True, window=sub.window,
+                                       positions=positions)
         else:
             out = attn.full_attention(p, h, cfg, causal=sub.causal, window=sub.window,
                                       positions=positions)
     elif sub.kind == "mlp":
         out = mlp_apply(p, h, cfg.act)
+    elif sub.kind == "moe":
+        out, aux = moe_lib.moe_apply(p, h, cfg)
     else:
         raise _not_ported(sub.kind)
-    return x + out
+    return x + out, aux
 
 
 REMAT_MODES = ("none", "full", "dots")
@@ -98,7 +112,8 @@ def check_remat(remat: str):
 
 
 def group_apply(params, x, group: Group, cfg: ModelConfig, positions=None, remat: str = "none"):
-    """Full-sequence forward through one group (loop over its layers).
+    """Full-sequence forward through one group (loop over its layers) →
+    (x, aux summed over the layers).
 
     ``remat`` rematerialises each layer's body in the backward pass, as the
     JAX package's ``jax.checkpoint`` of its scan body: "full" saves only
@@ -106,20 +121,26 @@ def group_apply(params, x, group: Group, cfg: ModelConfig, positions=None, remat
     check_remat(remat)
 
     def body(h, lp):
+        aux = None
         for i, s in enumerate(group.period):
-            h = sub_apply(lp[f"sub{i}"], h, s, cfg, positions=positions)
-        return h
+            h, a = sub_apply(lp[f"sub{i}"], h, s, cfg, positions=positions)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return h, aux
 
+    aux = None
     for layer in range(group.repeats):
         lp = layer_params(params, layer)
         if remat == "none":
-            x = body(x, lp)
+            x, a = body(x, lp)
         elif remat == "full":
-            x = checkpoint(body, x, lp, use_reentrant=False)
+            x, a = checkpoint(body, x, lp, use_reentrant=False)
         else:
-            x = checkpoint(body, x, lp, use_reentrant=False, context_fn=functools.partial(
+            x, a = checkpoint(body, x, lp, use_reentrant=False, context_fn=functools.partial(
                 create_selective_checkpoint_contexts, _dots_policy))
-    return x
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, (torch.zeros((), dtype=ACC, device=x.device) if aux is None else aux)
 
 
 # ----------------------------------------------------------------- decode --
@@ -131,6 +152,8 @@ def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
         out, nc = attn.decode_attention(p, h, cfg, cache, pos, window=sub.window, active=active)
     elif sub.kind == "mlp":
         out, nc = mlp_apply(p, h, cfg.act), None
+    elif sub.kind == "moe":
+        out, nc = moe_lib.moe_decode_apply(p, h, cfg)[0], None
     else:
         raise _not_ported(sub.kind)
     return x + out, nc
@@ -164,7 +187,9 @@ def sub_verify(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
         out, nc = attn.verify_attention(p, h, cfg, cache, pos, window=sub.window, active=active)
     elif sub.kind == "mlp":
         out, nc = mlp_apply(p, h, cfg.act), None
-    elif sub.kind in ("cross_attn", "moe"):
+    elif sub.kind == "moe":
+        out, nc = moe_lib.moe_apply(p, h, cfg)[0], None
+    elif sub.kind == "cross_attn":
         raise _not_ported(sub.kind)
     else:
         raise ValueError(f"verify step unsupported for recurrent sublayer {sub.kind!r}: "
@@ -185,7 +210,7 @@ def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, de
         if s.kind == "attn":
             caches[f"sub{i}"] = attn.init_kv_cache(cfg, batch, cache_len, dtype, device,
                                                    group.repeats)
-        elif s.kind != "mlp":
+        elif s.kind not in ("mlp", "moe"):
             raise _not_ported(s.kind)
     return caches
 
@@ -207,5 +232,5 @@ def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len):
                 _, k, v = attn._qkv(p, hn, hn, cfg, positions, positions)
                 caches[key]["k"][layer, :, :L] = k
                 caches[key]["v"][layer, :, :L] = v
-            x = sub_apply(p, x, s, cfg)
+            x, _ = sub_apply(p, x, s, cfg)
     return x, caches

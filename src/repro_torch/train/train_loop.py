@@ -11,8 +11,11 @@ the optimizer step runs with no flatten or concatenation
 nested dict and steps with ``CollageAdamW.step`` (per leaf, or through the
 fused shim with ``use_fused_kernel``).
 
-The step function mutates nothing: it returns a new ``TrainState`` (the
-optimizer's update is functional, as the JAX package's).
+The step function returns a new ``TrainState`` and, by default, mutates
+nothing (the optimizer's update is functional, as the JAX package's). With
+``donate`` (bucketed layout; the launcher's choice) the optimizer writes
+the new parameters and state over the old buckets, as a jit with donated
+arguments does: one copy of the optimizer state on the card, not two.
 
 Not ported yet: gradient compression (``grad_compression`` other than
 "none") and the sharded collective (``psum_axis``).
@@ -194,18 +197,22 @@ def _with_grad_leaves(grads, leaves):
     return bucketing.tree_unflatten(bucketing.tree_flatten_with_path(grads)[1], leaves)
 
 
-def _apply_opt(opt: CollageAdamW, grads, params, opt_state):
+def _apply_opt(opt: CollageAdamW, grads, params, opt_state, donate=False):
     if isinstance(params, bucketing.BucketedParams):
-        return opt.step_bucketed(grads, params, opt_state)
+        return opt.step_bucketed(grads, params, opt_state, donate=donate)
+    if donate:
+        raise ValueError("donate: the bucketed layout only (the tree step is per leaf)")
     return opt.step(grads, params, opt_state)
 
 
 def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
                     remat: str = "none", grad_compression: str = "none",
                     psum_axis: Optional[str] = None,
-                    flash_min_len: Optional[int] = None) -> Callable:
+                    flash_min_len: Optional[int] = None, donate: bool = False) -> Callable:
     """Build ``train_step(state, batch) → (state, metrics)``; metrics are
-    0-dim tensors on the device (reading one synchronises)."""
+    0-dim tensors on the device (reading one synchronises). ``donate``
+    (bucketed layout): the step writes the new state over the one it is
+    given, which must not be used again."""
     _check_compression(grad_compression)
     if psum_axis is not None:
         raise NotImplementedError("psum_axis (sharded step): not yet ported to repro_torch")
@@ -214,7 +221,7 @@ def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
 
     def train_step(state: TrainState, batch):
         loss, lmetrics, grads = accum_grads(state.params, batch)
-        params, opt_state, om = _apply_opt(opt, grads, state.params, state.opt_state)
+        params, opt_state, om = _apply_opt(opt, grads, state.params, state.opt_state, donate)
         metrics = {"loss": loss, **lmetrics, "edq": om.edq, "update_norm": om.update_norm,
                    "imprecision_pct": om.imprecision_pct, "grad_norm": om.grad_norm}
         return TrainState(params, opt_state, state.grad_err), metrics

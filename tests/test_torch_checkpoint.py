@@ -1,6 +1,7 @@
 """The port's checkpoints (repro_torch.train.checkpoint, the bucketing
 migration and train.elastic's supervisor) against the JAX package's
-format, on gpt-smoke.
+format, on gpt-smoke (and, across packages, on qwen3-moe and gemma3 smoke:
+MoE leaves, a tied head, a stack of two groups).
 
 * Reference → port and port → reference, bit for bit: a state written by
   one package's ``save`` is restored by the other's, and every array of
@@ -192,6 +193,60 @@ def test_port_bucketed_checkpoint_restores_into_reference(name, tmp_path):
     template = jtl.init_state(_jax_model(), _jax_opt(name, True), jax.random.PRNGKey(1))
     got, _ = jckpt.restore(str(tmp_path), 2, template)
     _assert_same(_jax_named(got), _port_named(ts))
+
+
+# qwen3 smoke: MoE leaves (router, we_gate, we_up, we_down, stacked over the
+# repeats); gemma3 smoke at 10 layers: a tied head (no lm_head) and a stack
+# of two groups
+FAMILIES = {"qwen3-moe-30b-a3b": {}, "gemma3-27b": {"n_layers": 10}}
+
+
+def _family_cfgs(arch):
+    return (dataclasses.replace(jax_config(arch, smoke=True), **FAMILIES[arch]),
+            dataclasses.replace(get_config(arch, smoke=True), **FAMILIES[arch]))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_family_state(arch, bucketed):
+    jcfg, _ = _family_cfgs(arch)
+    jm, jopt = jax_build(jcfg), _jax_opt("C", bucketed)
+    js = jtl.init_state(jm, jopt, jax.random.PRNGKey(0))
+    step = jax.jit(jtl.make_train_step(jm, jopt))
+    batches = jax_batch_fn(jcfg, JShape("t", 16, 2, "train"))
+    for i in range(2):
+        js, _ = step(js, {k: np.asarray(v) for k, v in batches(i).items()})
+    return jm, jopt, js
+
+
+@pytest.mark.parametrize("bucketed", [True, False], ids=["bucketed", "tree"])
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_family_checkpoints_cross_both_ways(arch, bucketed, tmp_path):
+    """C after 2 steps, reference → port and port → reference, bit for bit,
+    under the reference's names; the bucket layout over the MoE leaves or
+    the tied tree is the reference's."""
+    jcfg, tcfg = _family_cfgs(arch)
+    jm, jopt, js = _jax_family_state(arch, bucketed)
+    jckpt.save(str(tmp_path / "ref"), 2, js, extra={"step": 2})
+    tm, topt = build_model(tcfg), _port_opt("C", bucketed)
+    got, _ = ckpt.restore(str(tmp_path / "ref"), 2, ttl.init_state(tm, topt, 1, device="cpu"))
+    want = _jax_named(js)
+    _assert_same(_port_named(got), want)
+    if bucketed:
+        assert got.params.layout.to_json() == js.params.layout.to_json()
+    names = str(js.params.layout.to_json()["slots"]) if bucketed else " ".join(want)
+    assert ("we_gate" in names) == (arch == "qwen3-moe-30b-a3b")
+    assert ("lm_head" in names) == (not tcfg.tie_embeddings)
+    assert ("['groups'][1]" in names) == (arch == "gemma3-27b")
+
+    ts = ttl.init_state(tm, topt, 2, device="cpu")
+    step = ttl.make_train_step(tm, topt)
+    batches = jax_batch_fn(jcfg, JShape("t", 16, 2, "train"))
+    for i in range(2):
+        ts, _ = step(ts, _to_torch({k: np.asarray(v) for k, v in batches(i).items()}))
+    ckpt.save(str(tmp_path / "port"), 2, ts, extra={"step": 2})
+    back, _ = jckpt.restore(str(tmp_path / "port"), 2,
+                            jtl.init_state(jm, jopt, jax.random.PRNGKey(1)))
+    _assert_same(_jax_named(back), _port_named(ts))
 
 
 def test_manifests_of_both_packages_agree(tmp_path):

@@ -102,12 +102,19 @@ def test_block_rows_match_the_jax_choice():
 
 
 def test_kernel_grid_refuses_buckets_past_int32():
-    """The kernel takes the bucket length as a C int: a bucket of 2^31
-    elements or more is refused before launch, not wrapped."""
+    """The kernel takes the bucket length in 64 bits and its tile count as a
+    C int: buckets of 2^31 elements or more take one launch (gemma3-27b's
+    3.89 B-element bucket; chip_smoke.py's 2^31 + 3072 case), and only a
+    tile count past int32 is refused before launch, not wrapped."""
     assert tcu.kernel_grid(162_149_376) == (8, 158_349)
     assert tcu.kernel_grid(2**31 - 128) == (1, 2**24 - 1)
-    for n in (2**31, 2**32 + 1024):
-        with pytest.raises(ValueError, match="2\\^31"):
+    assert tcu.kernel_grid(2**31) == (256, 2**16)
+    assert tcu.kernel_grid(2**31 + 3 * 1024) == (8, 2**21 + 3)
+    assert tcu.kernel_grid(2**32 + 1024) == (8, 2**22 + 1)
+    n_max = tcu.MAX_TILES * 128                   # odd rows: one-row tiles
+    assert tcu.kernel_grid(n_max) == (1, tcu.MAX_TILES)
+    for n in (n_max + 128 * 2, (2**31 + 3) * 128):
+        with pytest.raises(ValueError, match="at most"):
             tcu.kernel_grid(n)
 
 
@@ -204,3 +211,72 @@ def test_bucketed_step_three_steps_from_converted_state(code):
             continue
         for a, b in zip(jt, back[role]):
             np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=role)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused-wrapper"])
+def test_donated_bucketed_step_writes_the_same_bits_in_place(fused):
+    """``bucketed_step(donate=True)`` (the launcher's bucketed train step):
+    the new parameters and state are the old buckets' tensors, holding the
+    bits of the functional step from the same state and gradient."""
+    from repro_torch.core import bucketing
+    from repro_torch.core.collage import CollageAdamW
+    from repro_torch.core.precision import BucketPolicy, PrecisionPolicy, Strategy
+    from repro_torch.kernels.collage_update import ops as tops
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"a": (torch.randn((64, 40), generator=g) * 0.05).to(torch.bfloat16),
+            "b": (torch.randn((300,), generator=g) * 0.05).to(torch.bfloat16)}
+    opt = CollageAdamW(1e-3, policy=PrecisionPolicy(strategy=Strategy.C_COLLAGE_PLUS,
+                                                    bucketing=BucketPolicy(enabled=True)),
+                       use_fused_kernel=fused)
+    bp, bs = opt.init_bucketed(tree)
+    grads = tuple((torch.randn(d.shape, generator=g) * 1e-2).to(d.dtype) for d in bp.data)
+    bp, bs, _ = tops.bucketed_step(opt, grads, bp, bs)          # nonzero state
+    keep = (tuple(d.clone() for d in bp.data), bucketing.BucketedOptState(
+        bs.step, *(tuple(x.clone() for x in r) if r is not None else None
+                   for r in (bs.m, bs.vhi, bs.vlo, bs.delta, bs.master)),
+        bs.rng, bs.layout, bs.grad_err))
+    want_p, want_s, want_m = tops.bucketed_step(
+        opt, grads, bucketing.BucketedParams(keep[0], bp.layout), keep[1])
+    got_p, got_s, got_m = tops.bucketed_step(opt, grads, bp, bs, donate=True)
+    assert all(x.data_ptr() == y.data_ptr() for x, y in zip(got_p.data, bp.data))
+    assert all(x.data_ptr() == y.data_ptr() for x, y in zip(got_s.vlo, bs.vlo))
+    for role in ("data", "m", "vhi", "vlo", "delta"):
+        src_w = want_p.data if role == "data" else getattr(want_s, role)
+        src_g = got_p.data if role == "data" else getattr(got_s, role)
+        for x, y in zip(src_g, src_w):
+            assert torch.equal(x.view(torch.int16), y.view(torch.int16)), role
+    assert float(got_m.edq) == float(want_m.edq)
+
+
+@pytest.mark.parametrize("code", ["C", "SR"])
+def test_update_in_chunks_of_whole_tiles_equals_one_bucket(code):
+    """chip_smoke.py's check of the update past 2^31 elements runs the plain
+    version over chunks of whole tiles, each with its element offset: the
+    chunks' bits and concatenated per-tile partials (``return_tiles``),
+    summed over the tiles by ``det_sum``, equal the whole bucket's."""
+    from repro_torch.core import bucketing
+    from repro_torch.kernels.collage_update import ref as tref
+
+    n, chunk, br = 40 * 1024, 16 * 1024, 8
+    g = torch.Generator().manual_seed(1)
+    scales = {"theta": 0.05, "m": 1e-3, "vhi": 1e-5, "vlo": 1e-9, "delta": 1e-5}
+    state = {f: (torch.randn((n,), generator=g) * scales[f]).abs().to(torch.bfloat16)
+             if f == "vhi" else (torch.randn((n,), generator=g) * scales[f]).to(torch.bfloat16)
+             for f in tcu.state_fields(code)}
+    grad = (torch.randn((n,), generator=g) * 1e-2).to(torch.bfloat16)
+    seed, off = (77, 2**32 - 20 * 1024) if code == "SR" else (None, None)
+    kw = dict(strategy=code, compute_metrics=True, block_rows=br)
+    whole, parts = tref.collage_bucket_update_plain(state, grad, 1e-3, 0.19, 0.0975, seed, off,
+                                                    **kw)
+    tiles = []
+    for s in range(0, n, chunk):
+        sub = {f: t[s:s + chunk] for f, t in state.items()}
+        o = None if off is None else (off + s) % 2**32
+        out, t = tref.collage_bucket_update_plain(sub, grad[s:s + chunk], 1e-3, 0.19, 0.0975,
+                                                  seed, o, return_tiles=True, **kw)
+        for f in out:
+            assert torch.equal(out[f].view(torch.int16), whole[f][s:s + chunk].view(torch.int16))
+        tiles.append(t)
+    sums = bucketing.det_sum(torch.cat(tiles), dim=0)
+    assert all(torch.equal(sums[i], parts[i]) for i in range(5))

@@ -130,6 +130,28 @@ def test_collage_update_kernel_bit_identical_to_plain(code, n):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["A", "B", "C", "KAHAN", "SR", "D-", "D"])
+@pytest.mark.parametrize("n", [512 * 128, 33 * 1024, 7 * 128])   # br 256 (two passes), 8, 7
+def test_collage_update_in_place_bit_identical_to_out_of_place(code, n):
+    """``in_place`` (the donated train step) writes the same bits over the
+    inputs, on both kernel paths and for a tile that takes two passes."""
+    _card()
+    from repro_torch.kernels.collage_update import collage_update as cu
+
+    state, grad = _update_inputs(code, n)
+    kw = _update_kw(code)
+    a, pa = cu.collage_bucket_update(state, grad, 1e-3, 0.19, 0.0975, **kw)
+    mine = {f: t.clone() for f, t in state.items()}
+    b, pb = cu.collage_bucket_update(mine, grad, 1e-3, 0.19, 0.0975, in_place=True, **kw)
+    torch.cuda.synchronize()
+    for f in a:
+        assert b[f] is mine[f]
+        assert torch.equal(a[f].view(torch.uint8), b[f].view(torch.uint8)), f
+    for x, y in zip(pa, pb):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
 def _update_inputs(code, n):
     from repro_torch.kernels.collage_update import collage_update as cu
 
