@@ -1,10 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's entry
-points. The paper's own GPT family and the six attention-only families
-(dense GQA, gemma3's local:global windows, MoE) are ported; the four
-families with recurrent state or a frontend raise ``NotImplementedError``."""
+points. The paper's own GPT family, the six attention-only families
+(dense GQA, gemma3's local:global windows, MoE) and the two recurrent ones
+(rwkv6's time/channel mix, jamba's Mamba + attention + MoE hybrid) are
+ported; the two families with a frontend raise ``NotImplementedError``."""
 
 from repro_torch.configs import (codeqwen1_5_7b, gemma3_27b, gpt, granite_3_2b, internlm2_1_8b,
-                                 moonshot_v1_16b_a3b, qwen3_moe_30b_a3b)
+                                 jamba_1_5_large_398b, moonshot_v1_16b_a3b, qwen3_moe_30b_a3b,
+                                 rwkv6_1_6b)
 from repro_torch.configs.base import Group, ModelConfig, Sub
 
 GPT = {"gpt-tiny": gpt.GPT_TINY, "gpt-125m": gpt.GPT_125M, "gpt-1.3b": gpt.GPT_1_3B,
@@ -17,10 +19,12 @@ ARCHS = {
     "gemma3-27b": gemma3_27b,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+    "rwkv6-1.6b": rwkv6_1_6b,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
 }
 
 # families of the JAX package that the port does not cover yet
-NOT_YET_PORTED = ("seamless-m4t-medium", "jamba-1.5-large-398b", "internvl2-1b", "rwkv6-1.6b")
+NOT_YET_PORTED = ("seamless-m4t-medium", "internvl2-1b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

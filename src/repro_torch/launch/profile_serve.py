@@ -16,9 +16,17 @@ traced the same way, with the launches per decode step; with
 draft's proposal of 4 tokens, then the target's verify), each half traced
 on its own.
 
+``--arch A [--layers N] [--experts E]`` serves another arch (depth and
+expert count cut as given) instead of gpt-125m; recurrent archs (rwkv6,
+jamba) batch by exact prompt length, so their arena is prefilled one
+request a launch, each at its own length.
+
   PYTHONPATH=src python -m repro_torch.launch.profile_serve
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --continuous \
       --speculative-draft layers:6
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --continuous --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --continuous \
+      --arch jamba-1.5-large-398b --layers 8 --experts 4
 """
 
 from __future__ import annotations
@@ -109,9 +117,17 @@ def fixed_slot_state(model, params, draft_model, draft_params, reqs):
     arena (and the draft's pool) in prefill launches of ``prefill_batch``,
     each with budget ``gen_hi``: a full pool, every slot live. Returns
     (slots, draft, batch, prompt_lens) with the padded (max_slots, bucket)
-    batch."""
+    batch. A recurrent model (no draft) is prefilled one request a launch
+    at its exact length; its draft and batch are None."""
     n, pb, S = ENGINE["max_slots"], ENGINE["prefill_batch"], cache_len()
     dev = params.device
+    if model._has_recurrent_state():
+        slots = model.init_slot_state(n, S, device=dev)
+        for i, r in enumerate(reqs[:n]):
+            toks = torch.as_tensor(r.tokens, dtype=torch.int64, device=dev)[None]
+            model.prefill_into(params, slots, {"tokens": toks}, [i], [TRACE["gen_hi"]],
+                               cache_len=S)
+        return slots, None, None, None
     toks = torch.zeros((n, _bucket_len(TRACE["hi"])), dtype=torch.int64)
     for i, r in enumerate(reqs[:n]):
         toks[i, :len(r.tokens)] = torch.as_tensor(r.tokens)
@@ -144,11 +160,13 @@ def _profiled(fn, make_args):
     return device_summary(prof, wall_us, _group)
 
 
-def profile_continuous(draft_spec=None) -> dict:
-    cfg = dataclasses.replace(get_config("gpt-125m"), flash_min_len=256)
+def profile_continuous(cfg, draft_spec=None) -> dict:
     model = build_model(cfg)
+    if draft_spec and model._has_recurrent_state():
+        raise ValueError(f"{cfg.name}: no speculative round for a recurrent arch")
     params = model.init(0, device="cuda")
-    dm, dp = draft_from_target(model, params, draft_spec or "self")
+    dm, dp = (None, None) if model._has_recurrent_state() else \
+        draft_from_target(model, params, draft_spec or "self")
     slots, draft, _, _ = fixed_slot_state(model, params, dm, dp, trace_requests(cfg.vocab_size))
     seg_len = ENGINE["seg_len"]
     out = {"segment": _profiled(
@@ -175,13 +193,22 @@ def main(argv=None):
     ap.add_argument("--speculative-draft", default=None,
                     help="with --continuous: also one speculative round with this draft "
                          "(self | layers:N)")
+    ap.add_argument("--arch", default="gpt-125m")
+    ap.add_argument("--layers", type=int, default=None, help="depth cut (default: the config's)")
+    ap.add_argument("--experts", type=int, default=None,
+                    help="n_experts cut (default: the config's)")
     args = ap.parse_args(argv)
+    cfg = dataclasses.replace(get_config(args.arch), flash_min_len=256)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.experts is not None:
+        cfg = dataclasses.replace(cfg, n_experts=args.experts)
     if args.continuous:
-        summary = profile_continuous(args.speculative_draft)
+        summary = profile_continuous(cfg, args.speculative_draft)
+        summary["arch"], summary["layers"] = args.arch, cfg.n_layers
         print(json.dumps(summary, indent=1))
         return summary
 
-    cfg = dataclasses.replace(get_config("gpt-125m"), flash_min_len=256)
     model = build_model(cfg)
     params = model.init(0, device="cuda")
     reqs = synthetic_requests(cfg.vocab_size, 8, 257, 512, seed=0)

@@ -2,8 +2,9 @@
 
 Runs the training workload of ``chip_smoke.py`` (by default gpt-125m,
 Collage-plus C, bucketed, fused update, flash_min_len 256, B 8 × L 512;
-``--arch``/``--layers``/``--batch``/``--seq-len`` give phase 8's families
-at their cut depth, with the donated step the launcher uses) for 3 warm-up
+``--arch``/``--layers``/``--batch``/``--seq-len``/``--remat`` give phases 8
+and 9's families at their cut depth, with the donated step the launcher
+uses) for 3 warm-up
 steps, then ``--steps`` steps under ``torch.profiler``, and prints the wall
 time, the device's busy share of it, and device time by kernel, grouped
 (the port's kernels, bf16 and f32 GEMMs, softmax, the rest) and by name.
@@ -12,6 +13,7 @@ the device time per step is what it measures well.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch qwen3-moe-30b-a3b --layers 2
+  PYTHONPATH=src python -m repro_torch.launch.profile_train --arch rwkv6-1.6b --remat full
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.profile_serve import device_summary, is_gemm
 from repro_torch.models.model import build_model
+from repro_torch.models.transformer import REMAT_MODES
 from repro_torch.train import train_loop
 
 
@@ -56,15 +59,17 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=None, help="depth cut (default: the config's)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=512)
+    ap.add_argument("--remat", default="none", choices=REMAT_MODES)
     args = ap.parse_args(argv)
     targs = tlaunch.parser().parse_args([
         "--arch", args.arch, "--precision", "C", "--bucketed", "--fused-kernel",
         "--flash-min-len", "256", "--seq-len", str(args.seq_len), "--batch", str(args.batch),
-        "--steps", str(3 + args.steps), "--warmup", "2"])
+        "--steps", str(3 + args.steps), "--warmup", "2", "--remat", args.remat])
     cfg, model, opt, step_fn, batch_fn, dev = tlaunch.build(targs)
     if args.layers is not None:
         model = build_model(dataclasses.replace(cfg, n_layers=args.layers, flash_min_len=256))
-        step_fn = train_loop.make_train_step(model, opt, flash_min_len=256, donate=True)
+        step_fn = train_loop.make_train_step(model, opt, flash_min_len=256, remat=args.remat,
+                                             donate=True)
     state = train_loop.init_state(model, opt, targs.seed, device=dev)
     batches = [batch_fn(i) for i in range(3 + args.steps)]
     for b in batches[:3]:
@@ -78,7 +83,7 @@ def main(argv=None):
         wall_us = (time.perf_counter() - t0) * 1e6
     summary = device_summary(prof, wall_us, _group)
     summary["steps"] = args.steps
-    summary["arch"], summary["layers"] = args.arch, model.cfg.n_layers
+    summary["arch"], summary["layers"], summary["remat"] = args.arch, model.cfg.n_layers, args.remat
     summary["peak_bytes"] = torch.cuda.max_memory_allocated()
     summary["loss"] = float(metrics["loss"])
     print(json.dumps(summary, indent=1))

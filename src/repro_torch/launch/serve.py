@@ -23,6 +23,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt-tiny --smoke --device cpu \
       --continuous --requests 32 --slots 8 --seg-len 8 --arrival-rate 0.5 \
       [--speculative-draft layers:1 --spec-k 4]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu \
+      [--continuous]
 """
 
 from __future__ import annotations
@@ -310,6 +312,8 @@ class ContinuousEngine:
         self.eos_id = sp.eos_id
         self.seed = sp.seed
         self._calls = 0
+        # recurrent states would take pad tokens in: bucket by exact length
+        self._exact_lens = model._has_recurrent_state()
         self.spec_k = int(spec_k)
         self.draft_model = draft_model
         self.draft_params = draft_params
@@ -340,12 +344,15 @@ class ContinuousEngine:
                       "max_reserved": 0, "verify_launches": 0, "target_slot_forwards": 0,
                       "spec_tokens_committed": 0}
 
+    def _bucket(self, n: int) -> int:
+        return n if self._exact_lens else _bucket_len(n)
+
     def _reservation(self, i: int, r: Request, max_new_tokens: int) -> tuple:
         """Admission-time validation for one request; raises
         ``AdmissionError`` if it could never be scheduled. Returns
         (budget, reservation)."""
         b = min(r.max_new_tokens or max_new_tokens, max_new_tokens)
-        bucket = _bucket_len(len(r.tokens))
+        bucket = self._bucket(len(r.tokens))
         res = bucket + b
         if res > self.cache_len:
             raise AdmissionError(f"request {i}: prompt bucket {bucket} + budget {b} = {res} "
@@ -436,11 +443,11 @@ class ContinuousEngine:
             # group same-bucket admits into fixed-shape prefill launches
             g = 0
             while g < len(admits):
-                bucket = _bucket_len(len(requests[admits[g]].tokens))
+                bucket = self._bucket(len(requests[admits[g]].tokens))
                 group = [admits[g]]
                 g += 1
                 while (g < len(admits) and len(group) < self.prefill_batch
-                       and _bucket_len(len(requests[admits[g]].tokens)) == bucket):
+                       and self._bucket(len(requests[admits[g]].tokens)) == bucket):
                     group.append(admits[g])
                     g += 1
                 Bp = self.prefill_batch
@@ -460,7 +467,9 @@ class ContinuousEngine:
                     delays[i] = clock - requests[i].arrival
                 self.stats["max_reserved"] = max(self.stats["max_reserved"], reserved)
                 batch = {"tokens": torch.from_numpy(toks).to(dev)}
-                pl = torch.from_numpy(lens).to(dev)
+                # attention archs always pass prompt_lens; recurrent archs
+                # bucket by exact length, so rows are never ragged
+                pl = None if self._exact_lens else torch.from_numpy(lens).to(dev)
                 tok0, slots = model.prefill_into(
                     self.params, slots, batch, sidx, buds, self._generator(stream, ev),
                     cache_len=self.cache_len, prompt_lens=pl, temperature=sp.temperature,
@@ -662,7 +671,9 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, flash_min_len=args.flash_min_len)
     model = build_model(cfg)
     params = model.init(args.seed, device=args.device)
-    lo = max(args.prompt_len // 2, 1)
+    # ragged prompts; recurrent archs batch by exact length, so every
+    # request of theirs takes the full prompt_len (the reference's demo)
+    lo = args.prompt_len if model._has_recurrent_state() else max(args.prompt_len // 2, 1)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               eos_id=args.eos_id, seed=args.seed)
     if args.continuous:

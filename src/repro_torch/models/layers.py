@@ -13,6 +13,17 @@ import torch.nn.functional as F
 ACC = torch.float32
 
 
+def chunk_pad(length: int, chunk: int) -> tuple[int, int]:
+    """(chunk, right-pad) so chunked causal mixers handle arbitrary
+    (serving) lengths: pad the sequence up to a chunk multiple and slice the
+    tail off the output — valid positions are unaffected (causal), and
+    multiples keep the configured chunk so training numerics are
+    unchanged. Never shrinks the chunk (a prime length must not degrade to
+    a token-by-token scan)."""
+    c = min(chunk, length)
+    return c, (-length) % c
+
+
 def dense_init(gen, shape, dtype, scale=None):
     """N(0, 1) · scale, drawn in f32 on ``gen``'s device; ``shape`` ends in
     (d_in, d_out) and may lead with a stack axis. Default scale d_in^-1/2."""

@@ -1,6 +1,6 @@
 """Top-level Model API: init / forward / token_ce / loss / prefill /
 decode_step / generate, the port of ``repro.models.model`` for the
-attention-only families.
+attention-only and the recurrent families (rwkv6, jamba's hybrid).
 
 Parameters hold the JAX package's stacked tree under the same names:
 ``embed`` (V, D), ``decoder.groups.<g>.sub<i>.<name>`` with a leading layer
@@ -18,9 +18,10 @@ axis (e.g. ``decoder.groups.0.sub0.wq`` is (12, 768, 768) for gpt-125m),
 Every method takes either, a nested dict of tensors, or a
 ``BucketedParams``.
 
-Serving: the KV caches travel inside a ``DecodeState`` that also carries
-the per-row cache position ``pos (B,)``. ``prefill`` sets ``pos`` to the
-true cache position (per-row ragged prompt lengths included) and
+Serving: the KV caches and recurrent states travel inside a
+``DecodeState`` that also carries the per-row cache position ``pos (B,)``.
+``prefill`` sets ``pos`` to the true cache position (per-row ragged prompt
+lengths included) and
 ``decode_step`` advances it, so callers never compute positions.
 ``generate`` is prefill plus a Python loop of decode steps (the JAX
 package's ``lax.scan``), with EOS / per-request budgets (finished rows
@@ -201,6 +202,15 @@ def _scatter_rows(pool_layers, new_layers, dst, src):
                 t[:, dst] = new[key][name][:, src].to(t.dtype)
 
 
+def _from_host(arr, device):
+    """A host array on ``device`` with no host sync: on the card through
+    pinned memory and a copy that does not block."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _live_rows(slot_idx, max_slots: int, device):
     """Prefill rows that land in the arena: (arena slots, batch rows).
     ``slot_idx`` is host data; rows with ``slot_idx >= max_slots`` are the
@@ -208,7 +218,7 @@ def _live_rows(slot_idx, max_slots: int, device):
     drops their scatter out of bounds)."""
     idx = np.asarray(slot_idx, np.int64)
     src = np.flatnonzero(idx < max_slots)
-    return (torch.from_numpy(idx[src]).to(device), torch.from_numpy(src).to(device))
+    return _from_host(idx[src], device), _from_host(src, device)
 
 
 def greedy_tokens(logits):
@@ -275,8 +285,7 @@ class Model:
         return logits.reshape(*x.shape[:-1], w.shape[-1])
 
     def _has_recurrent_state(self) -> bool:
-        return any(s.kind in ("mamba", "rwkv_tmix", "rwkv_cmix")
-                   for g in self.cfg.decoder_program() for s in g.period)
+        return any(s.kind in tf.RECURRENT for g in self.cfg.decoder_program() for s in g.period)
 
     # ------------------------------------------------------------ forward --
     def forward(self, params, batch, remat: str = "none"):
@@ -461,10 +470,13 @@ class Model:
         ``slot_idx >= max_slots`` are padding and touch nothing). Samples
         each new request's first token from the prefill logits, the whole
         group from one ``generator``. ``cache_len`` must be the pool's.
-        Returns (tok0 (Bp,), slots), the arena updated in place."""
+        Returns (tok0 (Bp,), slots), the arena updated in place. Reads
+        nothing back from the card: the host data goes over without a sync.
+        Recurrent archs take no ``prompt_lens`` (rows of one exact length)."""
         logits, new = self.prefill(params, batch, cache_len, prompt_lens=prompt_lens)
         tok0 = sample_logits(logits[:, -1], generator, temperature, top_k)
-        budget = torch.as_tensor(budget, dtype=torch.int64, device=tok0.device)
+        budget = budget.to(device=tok0.device, dtype=torch.int64) if torch.is_tensor(budget) \
+            else _from_host(np.asarray(budget, np.int64), tok0.device)
         done0 = budget <= 1
         if eos_id is not None:
             done0 = done0 | (tok0 == eos_id)
@@ -472,9 +484,10 @@ class Model:
         _scatter_rows(slots.state.layers, new.layers, dst, src)
         slots.state.pos[dst] = new.pos[src]
         slots.tok[dst, 0] = tok0[src]
-        slots.active[dst] = True
+        # index_fill_: a scalar set by index would copy it to the card and sync
+        slots.active.index_fill_(0, dst, True)
         slots.done[dst] = done0[src]
-        slots.n_gen[dst] = 1
+        slots.n_gen.index_fill_(0, dst, 1)
         slots.budget[dst] = budget[src]
         return tok0, slots
 

@@ -4,11 +4,17 @@
 Each ``Group(repeats, period)`` of the config's stack program holds its
 parameters stacked over ``repeats`` (leading axis), as the JAX package
 does; where the JAX package runs one ``lax.scan`` over that axis, the port
-runs a Python loop over the layer index. The attn, mlp and moe sublayers
-are ported; mamba, rwkv and cross-attention raise (the verify step raises
-the JAX package's ``ValueError`` for the recurrent kinds). ``sub_apply``
-and ``group_apply`` return the MoE aux loss beside the activations, summed
-over the group's layers as the JAX package's scan carries it.
+runs a Python loop over the layer index. The attn, mlp, moe, mamba,
+rwkv_tmix and rwkv_cmix sublayers are ported; cross-attention raises (the
+verify step raises the JAX package's ``ValueError`` for the recurrent
+kinds). ``sub_apply`` and ``group_apply`` return the MoE aux loss beside
+the activations, summed over the group's layers as the JAX package's scan
+carries it.
+
+Caches are updated in place: attention K/V rows at the scatter site
+(``attention.decode_attention``), the recurrent states (mamba ``h``/
+``conv``, rwkv ``S``/``last_x``) by ``_freeze_rows``, which writes the
+advanced state into the cache and keeps inactive rows bit-identical.
 """
 
 from __future__ import annotations
@@ -22,7 +28,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import Group, ModelConfig, Sub
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import ACC, dense_init, mlp_apply, rms_norm, rms_norm_init
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import (ACC, dense_init, matmul_f32, mlp_apply, rms_norm,
+                                      rms_norm_init)
+
+RECURRENT = ("mamba", "rwkv_tmix", "rwkv_cmix")
 
 
 def _not_ported(kind):
@@ -46,6 +57,12 @@ def sub_init(gen, sub: Sub, cfg: ModelConfig, dtype, repeats: int):
                      w_out=dense_init(gen, (repeats, f, d), dtype))
     elif sub.kind == "moe":
         p.update(moe_lib.moe_init(gen, cfg, dtype, repeats))
+    elif sub.kind == "mamba":
+        p.update(ssm_lib.mamba_init(gen, cfg, dtype, repeats))
+    elif sub.kind == "rwkv_tmix":
+        p.update(rwkv_lib.rwkv_tmix_init(gen, cfg, dtype, repeats))
+    elif sub.kind == "rwkv_cmix":
+        p.update(rwkv_lib.rwkv_cmix_init(gen, cfg, dtype, repeats))
     else:
         raise _not_ported(sub.kind)
     return p
@@ -88,6 +105,12 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, positions=None):
         out = mlp_apply(p, h, cfg.act)
     elif sub.kind == "moe":
         out, aux = moe_lib.moe_apply(p, h, cfg)
+    elif sub.kind == "mamba":
+        out = ssm_lib.mamba_apply(p, h, cfg)
+    elif sub.kind == "rwkv_tmix":
+        out = rwkv_lib.rwkv_tmix_apply(p, h, cfg)
+    elif sub.kind == "rwkv_cmix":
+        out = rwkv_lib.rwkv_cmix_apply(p, h, cfg)
     else:
         raise _not_ported(sub.kind)
     return x + out, aux
@@ -144,9 +167,24 @@ def group_apply(params, x, group: Group, cfg: ModelConfig, positions=None, remat
 
 
 # ----------------------------------------------------------------- decode --
+def _freeze_rows(new, cache, active):
+    """Write the advanced recurrent state ``new`` into ``cache`` in place;
+    with ``active (B,) bool``, rows with False keep their carried state
+    bit-identical (retired slots of continuous batching). Only for the
+    small recurrent states (mamba h/conv, rwkv S/last_x: O(B·d) leaves);
+    the attention KV write is masked at its scatter site instead."""
+    for name, t in cache.items():
+        n = new[name]
+        if active is not None:
+            n = torch.where(active.reshape(active.shape + (1,) * (n.dim() - 1)), n, t)
+        t.copy_(n)
+    return cache
+
+
 def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
-    """One-token step. Returns (x_out, cache or None); attention caches are
-    updated in place (``attention.decode_attention``)."""
+    """One-token step. Returns (x_out, cache or None); caches are updated
+    in place (attention: ``attention.decode_attention``; recurrent states:
+    ``_freeze_rows``)."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if sub.kind == "attn":
         out, nc = attn.decode_attention(p, h, cfg, cache, pos, window=sub.window, active=active)
@@ -154,6 +192,11 @@ def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
         out, nc = mlp_apply(p, h, cfg.act), None
     elif sub.kind == "moe":
         out, nc = moe_lib.moe_decode_apply(p, h, cfg)[0], None
+    elif sub.kind in RECURRENT:
+        step = {"mamba": ssm_lib.mamba_decode, "rwkv_tmix": rwkv_lib.rwkv_tmix_decode,
+                "rwkv_cmix": rwkv_lib.rwkv_cmix_decode}[sub.kind]
+        out, new = step(p, h, cfg, cache)
+        nc = _freeze_rows(new, cache, active)
     else:
         raise _not_ported(sub.kind)
     return x + out, nc
@@ -207,9 +250,16 @@ def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, de
     """Zero caches stacked over repeats. Only caching subs get entries."""
     caches = {}
     for i, s in enumerate(group.period):
+        key, R = f"sub{i}", group.repeats
         if s.kind == "attn":
-            caches[f"sub{i}"] = attn.init_kv_cache(cfg, batch, cache_len, dtype, device,
-                                                   group.repeats)
+            caches[key] = attn.init_kv_cache(cfg, batch, cache_len, dtype, device, R)
+        elif s.kind == "mamba":
+            caches[key] = ssm_lib.mamba_init_state(cfg, batch, dtype, device, R)
+        elif s.kind == "rwkv_tmix":
+            caches[key] = rwkv_lib.rwkv_tmix_init_state(cfg, batch, dtype, device, R)
+        elif s.kind == "rwkv_cmix":
+            caches[key] = {"last_x": torch.zeros((R, batch, cfg.d_model), dtype=dtype,
+                                                 device=device)}
         elif s.kind not in ("mlp", "moe"):
             raise _not_ported(s.kind)
     return caches
@@ -218,7 +268,9 @@ def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, de
 # ---------------------------------------------------------------- prefill --
 def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len):
     """Forward + cache construction: each attention layer's K/V are written
-    into a zeroed cache, then the sublayer runs through ``sub_apply``."""
+    into a zeroed cache, then the sublayer runs through ``sub_apply``; each
+    recurrent sublayer runs its parallel path and writes its decode state
+    after the last token (``_mixer_prefill``)."""
     B, L, _ = x.shape
     caches = group_init_cache(group, cfg, B, cache_len, x.dtype, x.device)
     positions = attn._positions(B, L, x.device)
@@ -232,5 +284,85 @@ def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len):
                 _, k, v = attn._qkv(p, hn, hn, cfg, positions, positions)
                 caches[key]["k"][layer, :, :L] = k
                 caches[key]["v"][layer, :, :L] = v
-            x, _ = sub_apply(p, x, s, cfg)
+            if s.kind in RECURRENT:
+                x, state = _mixer_prefill(p, x, s, cfg)
+                for name, t in state.items():
+                    caches[key][name][layer] = t
+            else:
+                x, _ = sub_apply(p, x, s, cfg)
     return x, caches
+
+
+def _mixer_prefill(p, x, sub: Sub, cfg):
+    """Run the parallel path AND return the decode state at position L-1."""
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    if sub.kind == "mamba":
+        out = ssm_lib.mamba_apply(p, h, cfg)
+        state = _mamba_state_after(p, h, cfg)
+    elif sub.kind == "rwkv_tmix":
+        out = rwkv_lib.rwkv_tmix_apply(p, h, cfg)
+        state = _rwkv_state_after(p, h, cfg)
+    else:  # rwkv_cmix
+        out = rwkv_lib.rwkv_cmix_apply(p, h, cfg)
+        state = {"last_x": h[:, -1]}
+    return x + out, state
+
+
+def _mamba_state_after(p, x, cfg):
+    """Final SSM state after consuming x (recomputed chunked — cheap).
+
+    The state must reflect EXACTLY the L real tokens, so (unlike the
+    pad-and-slice output path) an off-chunk tail is advanced with one exact
+    partial-chunk step — pad tokens must never enter the carried state."""
+    B, L, D = x.shape
+    xs, _, dt, a, b_ssm, _, _ = ssm_lib._ssm_inputs(p, x, cfg)
+    ck = min(cfg.ssm_chunk, L)
+    nc = L // ck                                 # full chunks
+    d_in = xs.shape[-1]
+    xs_f = xs.to(ACC)
+
+    def advance(h0, sl):
+        acc_a, acc_b = ssm_lib.chunk_scan(*ssm_lib._discretize(a, dt[:, sl], b_ssm[:, sl],
+                                                               xs_f[:, sl]))
+        return acc_a[:, -1] * h0 + acc_b[:, -1]
+
+    h = torch.zeros((B, d_in, cfg.ssm_d_state), dtype=ACC, device=x.device)
+    for c in range(nc):
+        h = advance(h, slice(c * ck, (c + 1) * ck))
+    if L % ck:                                   # exact partial-chunk tail
+        h = advance(h, slice(nc * ck, L))
+    K = cfg.ssm_conv_width
+    # conv tail: last K-1 pre-activation inputs (zero-extended left for
+    # prompts shorter than the conv receptive field); the reference takes
+    # this product with preferred_element_type=f32, then rounds
+    xz = matmul_f32(x.reshape(B * L, D), p["in_proj"]).to(x.dtype).reshape(B, L, -1)
+    conv = xz[..., :d_in][:, -(K - 1):]
+    if L < K - 1:
+        conv = torch.cat([torch.zeros((B, K - 1 - L, d_in), dtype=conv.dtype,
+                                      device=x.device), conv], dim=1)
+    return {"h": h, "conv": conv}
+
+
+def _rwkv_state_after(p, x, cfg):
+    """Final WKV state after consuming x; exact partial-chunk tail as in
+    ``_mamba_state_after``."""
+    B, L, d = x.shape
+    hd = cfg.rwkv_head_dim
+    H = d // hd
+    _, k, v, _, logw, _ = rwkv_lib._tmix_inputs(p, x, cfg)
+    C = min(cfg.rwkv_chunk, L)
+    nc = L // C                                  # full chunks
+
+    def advance(S, sl):
+        kk, vk, lw = k[:, sl], v[:, sl], logw[:, sl]
+        cum = torch.cumsum(lw, dim=1)
+        decay_all = torch.exp(cum[:, -1])
+        k_hat = kk * torch.exp(cum[:, -1][:, None] - cum)
+        return decay_all[..., None] * S + torch.einsum("bjhd,bjhe->bhde", k_hat, vk)
+
+    S = torch.zeros((B, H, hd, hd), dtype=ACC, device=x.device)
+    for c in range(nc):
+        S = advance(S, slice(c * C, (c + 1) * C))
+    if L % C:                                    # exact partial-chunk tail
+        S = advance(S, slice(nc * C, L))
+    return {"S": S, "last_x": x[:, -1]}

@@ -1,7 +1,8 @@
 """The port's checkpoints (repro_torch.train.checkpoint, the bucketing
 migration and train.elastic's supervisor) against the JAX package's
-format, on gpt-smoke (and, across packages, on qwen3-moe and gemma3 smoke:
-MoE leaves, a tied head, a stack of two groups).
+format, on gpt-smoke (and, across packages, on qwen3-moe, gemma3, rwkv6 and
+jamba smoke: MoE leaves, a tied head, a stack of two groups, the recurrent
+mixers' leaves).
 
 * Reference → port and port → reference, bit for bit: a state written by
   one package's ``save`` is restored by the other's, and every array of
@@ -197,8 +198,12 @@ def test_port_bucketed_checkpoint_restores_into_reference(name, tmp_path):
 
 # qwen3 smoke: MoE leaves (router, we_gate, we_up, we_down, stacked over the
 # repeats); gemma3 smoke at 10 layers: a tied head (no lm_head) and a stack
-# of two groups
-FAMILIES = {"qwen3-moe-30b-a3b": {}, "gemma3-27b": {"n_layers": 10}}
+# of two groups; rwkv6 smoke: the time-mix and channel-mix leaves (mu, w0,
+# w_a, w_b, wr/wk/wv/wg/wo, u, ln_scale); jamba smoke: Mamba (in_proj,
+# conv_w, x_proj, dt_proj, dt_bias, A_log, D, out_proj) beside NoPE
+# attention and MoE
+FAMILIES = {"qwen3-moe-30b-a3b": {}, "gemma3-27b": {"n_layers": 10}, "rwkv6-1.6b": {},
+            "jamba-1.5-large-398b": {}}
 
 
 def _family_cfgs(arch):
@@ -234,7 +239,9 @@ def test_family_checkpoints_cross_both_ways(arch, bucketed, tmp_path):
     if bucketed:
         assert got.params.layout.to_json() == js.params.layout.to_json()
     names = str(js.params.layout.to_json()["slots"]) if bucketed else " ".join(want)
-    assert ("we_gate" in names) == (arch == "qwen3-moe-30b-a3b")
+    assert ("we_gate" in names) == (arch in ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b"))
+    assert ("A_log" in names) == (arch == "jamba-1.5-large-398b")
+    assert ("w_a" in names) == (arch == "rwkv6-1.6b")
     assert ("lm_head" in names) == (not tcfg.tie_embeddings)
     assert ("['groups'][1]" in names) == (arch == "gemma3-27b")
 

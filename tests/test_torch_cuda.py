@@ -431,3 +431,80 @@ def test_segment_and_verify_round_make_no_host_sync_on_card():
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert (slots.n_gen >= 6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rwkv_tmix", "rwkv_cmix", "mamba"])
+def test_recurrent_mixers_on_card_match_the_cpu(kind):
+    """The recurrent mixers (chunked apply and six decode steps) in f32 on
+    the card against the same on the CPU, at smoke width with a chunk
+    boundary inside L 21: the same f32 operations summed in other orders
+    (rtol/atol 1e-4, tests/test_torch_families.py's f32 tolerance)."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv, ssm
+
+    arch = "jamba-1.5-large-398b" if kind == "mamba" else "rwkv6-1.6b"
+    cfg = get_config(arch, smoke=True)
+    init = {"mamba": ssm.mamba_init, "rwkv_tmix": rwkv.rwkv_tmix_init,
+            "rwkv_cmix": rwkv.rwkv_cmix_init}[kind]
+    apply = {"mamba": ssm.mamba_apply, "rwkv_tmix": rwkv.rwkv_tmix_apply,
+             "rwkv_cmix": rwkv.rwkv_cmix_apply}[kind]
+    step = {"mamba": ssm.mamba_decode, "rwkv_tmix": rwkv.rwkv_tmix_decode,
+            "rwkv_cmix": rwkv.rwkv_cmix_decode}[kind]
+    p = {k: v[0] for k, v in init(torch.Generator().manual_seed(0), cfg, torch.float32,
+                                  1).items()}
+    x = torch.randn((2, 21, cfg.d_model), generator=torch.Generator().manual_seed(1)) * 0.5
+    pc = {k: v.cuda() for k, v in p.items()}
+    torch.testing.assert_close(apply(pc, x.cuda(), cfg).cpu(), apply(p, x, cfg),
+                               rtol=1e-4, atol=1e-4)
+    if kind == "mamba":
+        st = ssm.mamba_init_state(cfg, 2, torch.float32, "cpu")
+    elif kind == "rwkv_tmix":
+        st = rwkv.rwkv_tmix_init_state(cfg, 2, torch.float32, "cpu")
+    else:
+        st = {"last_x": torch.zeros((2, cfg.d_model))}
+    stc = {k: v.cuda() for k, v in st.items()}
+    for t in range(6):
+        o, st = step(p, x[:, t:t + 1], cfg, st)
+        oc, stc = step(pc, x[:, t:t + 1].cuda(), cfg, stc)
+        torch.testing.assert_close(oc.cpu(), o, rtol=1e-4, atol=1e-4)
+        for k in st:
+            torch.testing.assert_close(stc[k].cpu(), st[k], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_recurrent_slot_arena_makes_no_host_sync_on_card(arch):
+    """A recurrent arch (smoke size, bf16): init_slot_state, prefill_into at
+    one exact length (no prompt_lens) and a decode segment read nothing
+    back to the host (torch.cuda's sync debug mode raises on any
+    synchronising call inside them); the prefilled rows equal a closed
+    prefill's bit for bit."""
+    _card()
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    model = build_model(get_config(arch, smoke=True))
+    params = model.init(0, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(2, 256, size=(3, 13))).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slots = model.init_slot_state(4, 32, device="cuda")
+        model.prefill_into(params, slots, {"tokens": toks}, [3, 0, 4], [8, 8, 1], cache_len=32)
+        model.decode_segment(params, slots, seg_len=4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert slots.n_gen.tolist() == [5, 0, 0, 5] and slots.state.pos.tolist() == [17, 0, 0, 17]
+    fresh = model.init_slot_state(4, 32, device="cuda")
+    model.prefill_into(params, fresh, {"tokens": toks}, [3, 0, 4], [8, 8, 1], cache_len=32)
+    _, closed = model.prefill(params, {"tokens": toks}, 32)
+    for arena, ref in zip(fresh.state.layers, closed.layers):
+        for key, sub in arena.items():
+            for name, t in sub.items():
+                assert torch.equal(t[:, [3, 0]], ref[key][name][:, :2]), (key, name)
+                assert not t[:, [1, 2]].any(), (key, name)
