@@ -6,6 +6,12 @@ transition tables as the JAX corpus (both build them with numpy from
 ``jax.random``; this one samples with a numpy ``Generator`` seeded from
 (seed, step, host_id). ``batch_at(step)`` is a pure function of its
 arguments; ``make_batch_fn`` hands its batches to the trainer as tensors.
+
+Frontend stubs (VLM patches, audio frames): ``frontend_at`` draws
+N(0, 0.1²) embeddings (B, F, D) from a numpy ``Generator`` seeded from
+(seed + 7, step), where the JAX corpus draws them from ``jax.random`` with
+the key ``fold_in(PRNGKey(seed + 7), step)``: the same shape and scale,
+not the same numbers.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,20 +59,36 @@ class SyntheticCorpus:
             s1, s2 = s2, toks[:, t] % self.n_states
         return {"tokens": toks, "labels": toks}
 
+    def frontend_at(self, step: int, d_model: int, frontend_len: int, host_id: int = 0,
+                    n_hosts: int = 1) -> np.ndarray:
+        """Frontend embeddings (rows, frontend_len, d_model) f32, N(0, 0.1²),
+        a pure function of (seed, step); every host draws the same rows, as
+        the JAX corpus does."""
+        rows = self.global_batch // n_hosts
+        rng = np.random.default_rng((self.seed + 7, step))
+        return rng.standard_normal((rows, frontend_len, d_model), dtype=np.float32) * \
+            np.float32(0.1)
+
 
 def make_batch_fn(cfg, shape, seed=0, device="cuda"):
-    """step → batch ({"tokens", "labels"} int64 tensors on ``device``) for a
-    (ModelConfig, ShapeConfig) pair. ``device`` defaults to the card, as
-    every entry point of the port (``device.resolve_device``: no card, no
-    batches); the CPU is asked for. Frontend inputs (VLM/audio) are not
-    ported."""
-    if cfg.family in ("vlm", "audio") or cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: frontend batches not yet ported")
+    """step → batch ({"tokens", "labels"} int64 tensors on ``device``, and
+    for VLM and enc-dec archs ``frontend`` (B, F, D) in the model dtype)
+    for a (ModelConfig, ShapeConfig) pair. A VLM's text is
+    ``seq_len − frontend_len`` tokens, so prefix and text fill ``seq_len``
+    positions. ``device`` defaults to the card, as every entry point of the
+    port (``device.resolve_device``: no card, no batches); the CPU is asked
+    for."""
     device = resolve_device(device)
-    corpus = SyntheticCorpus(cfg.vocab_size, shape.seq_len, shape.global_batch, seed=seed)
+    vlm = cfg.family == "vlm"
+    text_len = shape.seq_len - cfg.frontend_len if vlm else shape.seq_len
+    corpus = SyntheticCorpus(cfg.vocab_size, text_len, shape.global_batch, seed=seed)
 
     def fn(step: int, host_id: int = 0, n_hosts: int = 1):
-        b = corpus.batch_at(step, host_id, n_hosts)
-        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in corpus.batch_at(step, host_id, n_hosts).items()}
+        if vlm or cfg.is_encdec:
+            fe = corpus.frontend_at(step, cfg.d_model, cfg.frontend_len, host_id, n_hosts)
+            b["frontend"] = torch.from_numpy(fe).to(device=device, dtype=torch_dtype(cfg.dtype))
+        return b
 
     return fn

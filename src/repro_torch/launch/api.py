@@ -71,11 +71,12 @@ class Request:
     """One generation request: a token prompt. ``max_new_tokens`` caps THIS
     request's generation (None = the engine call's gen length);
     ``arrival`` is the virtual tick the continuous engine admits it at;
-    ``frontend`` exists for the families not yet ported (the closed engine
-    rejects a frontend on a text-only arch)."""
+    ``frontend`` (F, D): the frame or patch embeddings a VLM or enc-dec
+    arch needs on every request (a numpy array or a tensor; the closed
+    engine rejects one on a text-only arch)."""
 
     tokens: np.ndarray                       # (L,) int
-    frontend: Optional[np.ndarray] = None
+    frontend: Optional[np.ndarray] = None    # (F, D) float
     max_new_tokens: Optional[int] = None
     arrival: float = 0.0
 

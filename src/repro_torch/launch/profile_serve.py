@@ -19,7 +19,9 @@ on its own.
 ``--arch A [--layers N] [--experts E]`` serves another arch (depth and
 expert count cut as given) instead of gpt-125m; recurrent archs (rwkv6,
 jamba) batch by exact prompt length, so their arena is prefilled one
-request a launch, each at its own length.
+request a launch, each at its own length; VLM and enc-dec archs
+(internvl2, seamless-m4t) get the synthetic corpus's frontend stubs on
+every request, and a VLM's cache rows its F prefix positions more.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --continuous \
@@ -27,6 +29,7 @@ request a launch, each at its own length.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --continuous --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --continuous \
       --arch jamba-1.5-large-398b --layers 8 --experts 4
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch internvl2-1b
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.launch.api import SamplingParams, make_engine
-from repro_torch.launch.serve import (_bucket_len, draft_from_target, poisson_requests,
-                                      synthetic_requests)
+from repro_torch.launch.serve import (_bucket_len, attach_frontends, draft_from_target,
+                                      poisson_requests, synthetic_requests)
 from repro_torch.models.model import build_model
 
 # the serve_continuous trace of chip_smoke.py: benchmarks/decode.py's
@@ -108,8 +111,14 @@ def trace_requests(vocab_size: int):
                             t["rate"], seed=t["seed"])
 
 
-def cache_len() -> int:
-    return _bucket_len(TRACE["hi"]) + TRACE["gen_hi"]
+def model_requests(model, reqs):
+    """``reqs`` with the synthetic frontend stubs where ``model`` needs them."""
+    return attach_frontends(reqs, model.cfg) if model.needs_frontend else reqs
+
+
+def cache_len(prefix: int = 0) -> int:
+    """The trace's cache length, after a VLM's ``prefix`` of patch positions."""
+    return prefix + _bucket_len(TRACE["hi"]) + TRACE["gen_hi"]
 
 
 def fixed_slot_state(model, params, draft_model, draft_params, reqs):
@@ -118,8 +127,9 @@ def fixed_slot_state(model, params, draft_model, draft_params, reqs):
     each with budget ``gen_hi``: a full pool, every slot live. Returns
     (slots, draft, batch, prompt_lens) with the padded (max_slots, bucket)
     batch. A recurrent model (no draft) is prefilled one request a launch
-    at its exact length; its draft and batch are None."""
-    n, pb, S = ENGINE["max_slots"], ENGINE["prefill_batch"], cache_len()
+    at its exact length; its draft and batch are None. Requests of a VLM
+    or enc-dec arch carry frontends, which the batch stacks."""
+    n, pb, S = ENGINE["max_slots"], ENGINE["prefill_batch"], cache_len(model._prefix_len)
     dev = params.device
     if model._has_recurrent_state():
         slots = model.init_slot_state(n, S, device=dev)
@@ -133,17 +143,20 @@ def fixed_slot_state(model, params, draft_model, draft_params, reqs):
         toks[i, :len(r.tokens)] = torch.as_tensor(r.tokens)
     toks = toks.to(dev)
     lens = torch.tensor([len(r.tokens) for r in reqs[:n]], device=dev)
+    full = {"tokens": toks}
+    if model.needs_frontend:
+        full["frontend"] = torch.stack([torch.as_tensor(r.frontend) for r in reqs[:n]]).to(dev)
     slots = model.init_slot_state(n, S, device=dev)
     draft = draft_model.init_decode_state(n, S, device=dev)
     for g0 in range(0, n, pb):
         rows = slice(g0, g0 + pb)
-        batch = {"tokens": toks[rows]}
+        batch = {k: v[rows] for k, v in full.items()}
         sidx = list(range(g0, g0 + pb))
         model.prefill_into(params, slots, batch, sidx, [TRACE["gen_hi"]] * pb, cache_len=S,
                            prompt_lens=lens[rows])
         draft_model.prefill_state_into(draft_params, draft, batch, sidx, cache_len=S,
                                        prompt_lens=lens[rows])
-    return slots, draft, {"tokens": toks}, lens
+    return slots, draft, full, lens
 
 
 def _profiled(fn, make_args):
@@ -167,7 +180,8 @@ def profile_continuous(cfg, draft_spec=None) -> dict:
     params = model.init(0, device="cuda")
     dm, dp = (None, None) if model._has_recurrent_state() else \
         draft_from_target(model, params, draft_spec or "self")
-    slots, draft, _, _ = fixed_slot_state(model, params, dm, dp, trace_requests(cfg.vocab_size))
+    slots, draft, _, _ = fixed_slot_state(model, params, dm, dp,
+                                          model_requests(model, trace_requests(cfg.vocab_size)))
     seg_len = ENGINE["seg_len"]
     out = {"segment": _profiled(
         lambda s: model.decode_segment(params, s, seg_len=seg_len, eos_id=1),
@@ -211,7 +225,7 @@ def main(argv=None):
 
     model = build_model(cfg)
     params = model.init(0, device="cuda")
-    reqs = synthetic_requests(cfg.vocab_size, 8, 257, 512, seed=0)
+    reqs = model_requests(model, synthetic_requests(cfg.vocab_size, 8, 257, 512, seed=0))
 
     def run():
         eng = make_engine(model, params, mode="closed", sampling=SamplingParams(), max_batch=8)

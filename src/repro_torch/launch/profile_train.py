@@ -14,6 +14,11 @@ the device time per step is what it measures well.
   PYTHONPATH=src python -m repro_torch.launch.profile_train
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch qwen3-moe-30b-a3b --layers 2
   PYTHONPATH=src python -m repro_torch.launch.profile_train --arch rwkv6-1.6b --remat full
+  PYTHONPATH=src python -m repro_torch.launch.profile_train --arch seamless-m4t-medium
+
+The frontend families take ``make_batch_fn``'s seeded frontend stubs:
+internvl2-1b's 256 patches fill part of ``--seq-len``, seamless-m4t's
+1024 frames go through its encoder beside ``--seq-len`` tokens.
 """
 
 from __future__ import annotations

@@ -25,6 +25,14 @@
       [--speculative-draft layers:1 --spec-k 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke --device cpu \
       [--continuous]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b --smoke --device cpu \
+      [--continuous [--speculative-draft layers:1]]
+
+VLM and enc-dec archs (internvl2, seamless-m4t) need a frontend (F, D) on
+every request (frame or patch embeddings, stubs as in the JAX package);
+the engines stack a launch's frontends, with zeros for its dummy rows. A
+VLM's patch prefix takes F positions of each cache row, so the continuous
+engine reserves F + bucket + budget positions a request.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from repro_torch.launch.api import (AdmissionError, CapabilityError, PoolError, 
 from repro_torch.models.model import Model, ParamView, as_view, build_model, param_dict
 
 __all__ = ["SlotPool", "GenerationEngine", "ContinuousEngine", "draft_from_target",
-           "synthetic_requests", "poisson_requests", "main"]
+           "synthetic_requests", "poisson_requests", "attach_frontends", "main"]
 
 
 def _bucket_len(n: int, lo: int = 8) -> int:
@@ -79,6 +87,23 @@ def poisson_requests(vocab_size: int, n: int, lo: int, hi: int, gen_lo: int, gen
         reqs.append(Request(tokens=rng.integers(2, vocab_size, size=L).astype(np.int32),
                             max_new_tokens=g, arrival=arrival))
     return reqs
+
+
+def attach_frontends(requests: Sequence[Request], cfg, seed: int = 0) -> list[Request]:
+    """The requests with frontend stubs (frontend_len, d_model) f32: the
+    rows of the synthetic corpus's ``frontend_at(0)`` for ``seed``, as the
+    JAX package's serve CLI draws them."""
+    fe = SyntheticCorpus(cfg.vocab_size, 1, max(len(requests), 1), seed=seed).frontend_at(
+        0, cfg.d_model, cfg.frontend_len)
+    return [dataclasses.replace(r, frontend=fe[i]) for i, r in enumerate(requests)]
+
+
+def _frontends(requests: Sequence[Request], idxs, Bp: int, device) -> torch.Tensor:
+    """A launch's frontends stacked (Bp, F, D) on ``device``, zeros for the
+    dummy rows."""
+    fes = [torch.as_tensor(requests[i].frontend) for i in idxs]
+    fes += [torch.zeros_like(fes[0])] * (Bp - len(fes))
+    return torch.stack(fes).to(device)
 
 
 class SlotPool:
@@ -196,6 +221,8 @@ class GenerationEngine:
                 buds[r] = budgets[i]
             dev = self.device
             batch = {"tokens": torch.from_numpy(toks).to(dev)}
+            if self.model.needs_frontend:
+                batch["frontend"] = _frontends(requests, idxs, Bp, dev)
             ragged = None if (lens == bucket).all() else torch.from_numpy(lens).to(dev)
             gen, _ = self.model.generate(
                 self.params, batch, max_new_tokens, generator=generator,
@@ -252,9 +279,13 @@ class GenerationEngine:
         return results, report
 
     def _request_error(self, i: int, r: Request) -> Optional[str]:
-        if r.frontend is not None:
+        if self.model.needs_frontend and r.frontend is None:
+            return (f"request {i}: {self.model.cfg.name} requires frontend embeddings on every "
+                    f"request")
+        if not self.model.needs_frontend and r.frontend is not None:
             return f"request {i}: frontend given for a text-only arch"
         return None
+
 
 class ContinuousEngine:
     """In-flight continuous batching over a slot-pool KV arena.
@@ -265,8 +296,9 @@ class ContinuousEngine:
 
       1. arrivals (virtual clock, ``Request.arrival`` ticks) join a FIFO
       2. admission: the queue head is admitted while a slot is free and
-         ``reserved + (bucket + budget) <= token_budget`` — strict FIFO, so
-         admission control never starves a long request
+         ``reserved + (F + bucket + budget) <= token_budget`` (F: a VLM's
+         patch prefix, else 0) — strict FIFO, so admission control never
+         starves a long request
       3. admitted requests are grouped per prompt bucket into prefill
          launches of a fixed batch, padded with dummy rows
          (``slot_idx = max_slots``) that touch nothing
@@ -285,7 +317,9 @@ class ContinuousEngine:
     target forward over ``(max_slots, spec_k + 1)``; greedy only.
 
     Sampling (temperature > 0) draws from a ``torch.Generator`` seeded
-    from (seed, call, event), one per prefill launch and segment.
+    from (seed, call, event), one per prefill launch and segment. VLM and
+    enc-dec archs need a frontend on every request (its launch stacks them,
+    zeros for the dummy rows); a text-only arch ignores one.
     Outputs stream: ``on_token(req_idx, token)`` fires per real decoded
     token, ``on_complete(req_idx, tokens)`` when a row retires.
     """
@@ -305,7 +339,7 @@ class ContinuousEngine:
         self.max_slots = int(max_slots)
         self.seg_len = int(seg_len)
         self.prefill_batch = int(prefill_batch)
-        # admission reservation cap: Σ_live (bucket + budget)
+        # admission reservation cap: Σ_live (frontend prefix + bucket + budget)
         self.token_budget = (int(token_budget) if token_budget is not None
                              else self.max_slots * self.cache_len)
         self.pad_id = sp.pad_id
@@ -351,12 +385,15 @@ class ContinuousEngine:
         """Admission-time validation for one request; raises
         ``AdmissionError`` if it could never be scheduled. Returns
         (budget, reservation)."""
+        if self.model.needs_frontend and r.frontend is None:
+            raise AdmissionError(f"request {i}: frontend embeddings required")
         b = min(r.max_new_tokens or max_new_tokens, max_new_tokens)
         bucket = self._bucket(len(r.tokens))
-        res = bucket + b
+        F = self.model._prefix_len
+        res = F + bucket + b
         if res > self.cache_len:
-            raise AdmissionError(f"request {i}: prompt bucket {bucket} + budget {b} = {res} "
-                                 f"exceeds cache_len {self.cache_len}")
+            raise AdmissionError(f"request {i}: frontend {F} + prompt bucket {bucket} + budget "
+                                 f"{b} = {res} exceeds cache_len {self.cache_len}")
         if res > self.token_budget:
             raise AdmissionError(f"request {i}: reservation {res} exceeds token_budget "
                                  f"{self.token_budget} — it could never be admitted")
@@ -467,6 +504,8 @@ class ContinuousEngine:
                     delays[i] = clock - requests[i].arrival
                 self.stats["max_reserved"] = max(self.stats["max_reserved"], reserved)
                 batch = {"tokens": torch.from_numpy(toks).to(dev)}
+                if model.needs_frontend:
+                    batch["frontend"] = _frontends(requests, group, Bp, dev)
                 # attention archs always pass prompt_lens; recurrent archs
                 # bucket by exact length, so rows are never ragged
                 pl = None if self._exact_lens else torch.from_numpy(lens).to(dev)
@@ -605,9 +644,10 @@ def draft_from_target(model: Model, params, spec: str):
 
     ``"self"``: the target is its own draft (every proposal accepted: for
     parity and boundary tests, not for speed). ``"layers:N"``: the depth-N
-    truncation, the first N layers of the stacked group as views (no
-    copy), sharing the target's ``embed``, ``lm_head`` and ``final_norm``.
-    Truncation needs a single-group decoder (the dense families)."""
+    truncation, the first N decoder layers of the stacked group as views
+    (no copy), sharing the target's ``embed``, ``lm_head``, ``final_norm``
+    and whole ``encoder``. Truncation needs a single-group decoder (the
+    dense families)."""
     if spec == "self":
         return model, params
     if not spec.startswith("layers:"):
@@ -680,6 +720,8 @@ def main(argv=None):
         return _serve_continuous(args, model, params, sampling, lo)
     requests = synthetic_requests(cfg.vocab_size, args.requests, lo, args.prompt_len,
                                   seed=args.seed)
+    if model.needs_frontend:
+        requests = attach_frontends(requests, cfg, seed=args.seed)
     engine = make_engine(model, params, mode="closed", sampling=sampling, max_batch=args.batch)
     t0 = time.perf_counter()
     outs = engine.generate(requests, args.gen,
@@ -705,9 +747,13 @@ def main(argv=None):
 def _serve_continuous(args, model, params, sampling, lo):
     """The ``--continuous`` path of ``main``: per-request budgets in
     [1, gen] and Poisson arrivals (what makes the slots churn)."""
-    requests = poisson_requests(model.cfg.vocab_size, args.requests, lo, args.prompt_len, 1,
+    cfg = model.cfg
+    requests = poisson_requests(cfg.vocab_size, args.requests, lo, args.prompt_len, 1,
                                 args.gen, args.arrival_rate, seed=args.seed)
     cache_len = _bucket_len(args.prompt_len) + args.gen
+    if model.needs_frontend:
+        requests = attach_frontends(requests, cfg, seed=args.seed)
+        cache_len += cfg.frontend_len          # the JAX CLI's, enc-dec archs included
     spec_kw: dict = {}
     mode = "continuous"
     if args.speculative_draft:

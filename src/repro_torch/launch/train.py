@@ -11,8 +11,13 @@ path: builds the model, the Collage optimizer and the train step, and runs
       --device cpu --steps 3 --bucketed --seq-len 32 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt-125m \\
       --precision D --flash-min-len 256 --seq-len 512 --batch 8 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-1b \\
+      --bucketed --fused-kernel --flash-min-len 256 --seq-len 512 --batch 8 --steps 6
 
-``--device`` defaults to ``cuda`` and raises without a card. Without
+Every ``--arch`` of the registry runs here; the frontend families' batches
+carry seeded frontend stubs (a VLM's patches take ``frontend_len`` of the
+``--seq-len`` positions). ``--device`` defaults to ``cuda`` and raises
+without a card. Without
 ``--bucketed`` the tree layout steps each leaf on its own, under any
 ``--precision`` (A, B, C, KAHAN, SR, D-MW, D), with each leaf's EDQ
 partials from the CUDA EDQ kernel; ``--fused-kernel`` runs the CUDA Collage

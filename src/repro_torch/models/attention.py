@@ -10,8 +10,11 @@ local ones) take ``banded_attention`` (O(L·W): each block of W queries
 scores its own and the previous key block) under ``attention_impl``
 "banded" or "flash", and causal layers ``flash_attention`` (the JAX
 package's blocked online softmax, in torch) under "flash".
-``verify_attention`` is the speculative verify step. The cross-attention
-paths are not ported yet.
+``verify_attention`` is the speculative verify step. Cross-attention
+(enc-dec decoders) runs ``full_attention`` with ``x_kv`` (the encoder's
+memory) and no rotary embedding at prefill, and ``cross_decode`` against
+the memory's K/V, computed once at prefill by ``cross_kv``, at decode and
+verify.
 """
 
 from __future__ import annotations
@@ -79,17 +82,27 @@ def _gqa_out(probs, v, cfg, dtype):
     return out.permute(0, 3, 1, 2, 4).reshape(B, L, hk * g * dh)
 
 
-def full_attention(p, x, cfg, *, causal=True, window=0, positions=None):
-    """Prefill self-attention with a full masked softmax; window>0 adds a
-    band mask."""
+def full_attention(p, x, cfg, *, causal=True, window=0, x_kv=None, positions=None,
+                   kv_positions=None, rope=True):
+    """Prefill attention with a full masked softmax; window>0 adds a band
+    mask. ``x_kv`` (B, S, D): keys and values from another sequence
+    (cross-attention), else from ``x``. ``rope``: rotate queries and keys
+    by their positions (``positions``, default 0..L-1; ``kv_positions``,
+    default ``positions``); cross-attention passes False, as the JAX
+    package rotates only when ``x_kv is x``."""
+    x_kv = x if x_kv is None else x_kv
     B, L, _ = x.shape
-    if positions is None and cfg.rope_theta > 0:
+    S = x_kv.shape[1]
+    if not rope:
+        positions = kv_positions = None
+    elif positions is None and cfg.rope_theta > 0:
         positions = _positions(B, L, x.device)
-    q, k, v = _qkv(p, x, x, cfg, positions, positions)
+    q, k, v = _qkv(p, x, x_kv, cfg, positions,
+                   positions if kv_positions is None else kv_positions)
     scores = _gqa_scores(q, k, cfg)
     qi = torch.arange(L, device=x.device)[:, None]
-    kj = torch.arange(L, device=x.device)[None, :]
-    mask = torch.zeros((L, L), dtype=torch.bool, device=x.device)
+    kj = torch.arange(S, device=x.device)[None, :]
+    mask = torch.zeros((L, S), dtype=torch.bool, device=x.device)
     if causal:
         mask |= kj > qi
     if window:
@@ -290,6 +303,32 @@ def verify_attention(p, x, cfg, cache, pos, *, window=0, active=None):
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, cache["v"], cfg, x.dtype)
     return matmul(out, p["wo"]), cache
+
+
+def cross_kv(p, memory, cfg):
+    """Cross-attention K/V of the encoder's memory (B, F, D), computed once
+    at prefill: {"k", "v"} (B, F, Hk, dh), no rotary embedding."""
+    B, F, _ = memory.shape
+    hk, dh = cfg.n_kv_heads, cfg.head_dim_
+    k = matmul(memory, p["wk"]).reshape(B, F, hk, dh)
+    v = matmul(memory, p["wv"]).reshape(B, F, hk, dh)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return {"k": k, "v": v}
+
+
+def cross_decode(p, x, cfg, cache):
+    """Cross-attention of x (B, L, D) against the cached memory K/V, no
+    rotary embedding and no mask (every query sees the whole memory), so
+    it takes any L: one decode token or a verify step's k+1."""
+    B, L, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim_
+    q = matmul(x, p["wq"]).reshape(B, L, h, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    probs = torch.softmax(_gqa_scores(q, cache["k"], cfg), dim=-1)
+    out = _gqa_out(probs, cache["v"], cfg, x.dtype)
+    return matmul(out, p["wo"])
 
 
 def init_kv_cache(cfg, batch, seq_len, dtype, device, repeats):

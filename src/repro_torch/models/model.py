@@ -1,11 +1,13 @@
 """Top-level Model API: init / forward / token_ce / loss / prefill /
-decode_step / generate, the port of ``repro.models.model`` for the
-attention-only and the recurrent families (rwkv6, jamba's hybrid).
+decode_step / generate, the port of ``repro.models.model`` for every
+architecture family of the JAX package.
 
 Parameters hold the JAX package's stacked tree under the same names:
 ``embed`` (V, D), ``decoder.groups.<g>.sub<i>.<name>`` with a leading layer
 axis (e.g. ``decoder.groups.0.sub0.wq`` is (12, 768, 768) for gpt-125m),
-``decoder.final_norm`` and ``lm_head`` (D, V). Two containers carry them:
+``decoder.final_norm``, ``lm_head`` (D, V), and for enc-dec archs the
+``encoder`` stack (``encoder.groups``, ``encoder.final_norm``). Two
+containers carry them:
 
 * ``ParamTree`` (an ``nn.Module`` of frozen ``nn.Parameter``s), what
   ``init`` returns, for serving;
@@ -18,11 +20,19 @@ axis (e.g. ``decoder.groups.0.sub0.wq`` is (12, 768, 768) for gpt-125m),
 Every method takes either, a nested dict of tensors, or a
 ``BucketedParams``.
 
+Frontends are stubs, as in the JAX package: the batch carries precomputed
+frame or patch embeddings ``frontend`` (B, F, D). An enc-dec arch
+(seamless-m4t) encodes them into the ``memory`` its decoder's
+cross-attention reads; a VLM (internvl2) puts them in front of the token
+embeddings, as a prefix of F positions of the decoder sequence and its
+cache, and takes the loss on the text segment only.
+
 Serving: the KV caches and recurrent states travel inside a
 ``DecodeState`` that also carries the per-row cache position ``pos (B,)``.
-``prefill`` sets ``pos`` to the true cache position (per-row ragged prompt
-lengths included) and
-``decode_step`` advances it, so callers never compute positions.
+``prefill`` sets ``pos`` to the true cache position (the VLM prefix and
+per-row ragged prompt lengths included) and
+``decode_step`` advances it, so callers never compute positions. The
+cross-attention caches hold the memory's K/V, written once at prefill.
 ``generate`` is prefill plus a Python loop of decode steps (the JAX
 package's ``lax.scan``), with EOS / per-request budgets (finished rows
 freeze ``pos``, leave their cache untouched and emit ``pad_id``).
@@ -79,6 +89,8 @@ class ParamTree(nn.Module):
         super().__init__()
         self.embed = _frozen(tree["embed"])
         self.decoder = _Stack(tree["decoder"]["groups"], tree["decoder"]["final_norm"])
+        self.encoder = _Stack(tree["encoder"]["groups"], tree["encoder"]["final_norm"]) \
+            if "encoder" in tree else None
         self.lm_head = _frozen(tree["lm_head"]) if "lm_head" in tree else None
 
     @property
@@ -95,11 +107,14 @@ class _Decoder:
 class ParamView:
     """The parameter tree as plain attributes over the given tensors (no
     ``nn.Parameter`` wrapping): ``embed``, ``decoder.groups`` (a list of
-    {sub: {name: tensor}}), ``decoder.final_norm``, ``lm_head``."""
+    {sub: {name: tensor}}), ``decoder.final_norm``, ``encoder`` (the same,
+    or None), ``lm_head``."""
 
     def __init__(self, tree: dict):
         self.embed = tree["embed"]
         self.decoder = _Decoder(tree["decoder"]["groups"], tree["decoder"]["final_norm"])
+        enc = tree.get("encoder")
+        self.encoder = None if enc is None else _Decoder(enc["groups"], enc["final_norm"])
         self.lm_head = tree.get("lm_head")
 
     @property
@@ -113,10 +128,11 @@ def param_dict(params) -> dict:
         return params
     if isinstance(params, BucketedParams):
         return params.tree()
-    tree = {"embed": params.embed,
-            "decoder": {"groups": [{key: {n: t for n, t in sub.items()} for key, sub in g.items()}
-                                   for g in params.decoder.groups],
-                        "final_norm": params.decoder.final_norm}}
+    stack = lambda st: {"groups": [{key: {n: t for n, t in sub.items()} for key, sub in g.items()}
+                                   for g in st.groups], "final_norm": st.final_norm}
+    tree = {"embed": params.embed, "decoder": stack(params.decoder)}
+    if params.encoder is not None:
+        tree["encoder"] = stack(params.encoder)
     if params.lm_head is not None:
         tree["lm_head"] = params.lm_head
     return tree
@@ -135,9 +151,9 @@ class DecodeState:
     """Generation-loop carry: per-group caches + per-row cache position.
 
     ``pos[b]`` is the next cache write position of row b == the number of
-    valid entries (prompt + generated so far), int64. It is the single
-    source of truth for RoPE positions and attention masking. The caches
-    are updated in place by ``decode_step``."""
+    valid entries (frontend prefix + prompt + generated so far), int64. It
+    is the single source of truth for RoPE positions and attention
+    masking. The caches are updated in place by ``decode_step``."""
 
     layers: tuple                 # one cache dict per decoder group
     pos: torch.Tensor             # (B,) int64
@@ -259,8 +275,6 @@ class Model:
         same numbers: ``jax.random`` streams are not reproducible here.
         ``device="meta"``: the shapes only."""
         cfg = self.cfg
-        if cfg.family in ("vlm", "audio", "encdec"):   # frontends are not ported
-            raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} not yet ported")
         dev = resolve_device(device)
         gen = _MetaGenerator() if dev.type == "meta" else \
             torch.Generator(device=dev).manual_seed(seed)
@@ -272,6 +286,11 @@ class Model:
                 "final_norm": rms_norm_init((cfg.d_model,), dtype, dev),
             },
         }
+        if cfg.is_encdec:
+            tree["encoder"] = {
+                "groups": [tf.group_init(gen, g, cfg, dtype) for g in cfg.encoder_program()],
+                "final_norm": rms_norm_init((cfg.d_model,), dtype, dev),
+            }
         if not cfg.tie_embeddings:
             tree["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype, scale=0.02)
         return ParamTree(tree)
@@ -287,18 +306,51 @@ class Model:
     def _has_recurrent_state(self) -> bool:
         return any(s.kind in tf.RECURRENT for g in self.cfg.decoder_program() for s in g.period)
 
+    @property
+    def needs_frontend(self) -> bool:
+        """Batches carry ``frontend`` (B, F, D) embeddings: VLM and enc-dec."""
+        return self.cfg.family == "vlm" or self.cfg.is_encdec
+
+    @property
+    def _prefix_len(self) -> int:
+        """Decoder-sequence prefix occupied by the frontend: VLM patches sit
+        in the decoder cache; enc-dec frontends go through the encoder."""
+        return self.cfg.frontend_len if self.cfg.family == "vlm" else 0
+
+    def _encode(self, params, frontend):
+        """The encoder stack over the frontend embeddings (in the model
+        dtype): the memory (B, F, D) the cross-attention reads, or None for
+        an arch without an encoder."""
+        cfg = self.cfg
+        if not cfg.is_encdec:
+            return None
+        x = frontend.to(device=params.embed.device, dtype=torch_dtype(cfg.dtype))
+        for g, gp in zip(cfg.encoder_program(), params.encoder.groups):
+            x, _ = tf.group_apply(gp, x, g, cfg)
+        return rms_norm(x, params.encoder.final_norm, cfg.norm_eps)
+
+    def _decoder_input(self, params, batch):
+        """Token embeddings, with the VLM patch prefix put in front of them
+        in the model dtype."""
+        x = embed_lookup(params.embed, batch["tokens"])
+        if self.cfg.family == "vlm":
+            x = torch.cat([batch["frontend"].to(device=x.device, dtype=x.dtype), x], dim=1)
+        return x
+
     # ------------------------------------------------------------ forward --
     def forward(self, params, batch, remat: str = "none"):
-        """Full-sequence logits. Returns (logits fp32, aux_loss); aux_loss is
-        the MoE balance loss summed over the groups (0 without MoE).
-        ``remat`` ("none", "full", "dots") rematerialises each decoder
-        layer in the backward pass (``transformer.group_apply``)."""
+        """Full-sequence logits (over the VLM prefix too). Returns (logits
+        fp32, aux_loss); aux_loss is the MoE balance loss summed over the
+        groups (0 without MoE). ``remat`` ("none", "full", "dots")
+        rematerialises each decoder layer in the backward pass
+        (``transformer.group_apply``); the encoder runs without."""
         cfg = self.cfg
         params = as_view(params)
-        x = embed_lookup(params.embed, batch["tokens"])
+        memory = self._encode(params, batch.get("frontend"))
+        x = self._decoder_input(params, batch)
         aux = torch.zeros((), dtype=ACC, device=x.device)
         for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
-            x, a = tf.group_apply(gp, x, g, cfg, remat=remat)
+            x, a = tf.group_apply(gp, x, g, cfg, memory=memory, remat=remat)
             aux = aux + a
         return self._head(params, x), aux
 
@@ -316,18 +368,26 @@ class Model:
 
     def loss(self, params, batch, remat: str = "none"):
         """Next-token cross entropy (fp32) plus the MoE aux term; returns
-        (loss, {"ce", "aux", "ppl"})."""
+        (loss, {"ce", "aux", "ppl"}). A VLM's loss is on the text segment
+        only."""
         logits, aux = self.forward(params, batch, remat=remat)
+        if self.cfg.family == "vlm":
+            logits = logits[:, batch["frontend"].shape[1]:]
         ce = self.token_ce(logits, batch["labels"])
         total = ce + AUX_LOSS_COEF * aux
         return total, {"ce": ce, "aux": aux, "ppl": torch.exp(ce)}
 
     # ------------------------------------------------------------ serving --
     def init_decode_state(self, batch_size: int, cache_len: int, *, device="cuda") -> DecodeState:
+        """Zero caches: ``cache_len`` self-attention positions, and for an
+        enc-dec arch cross-attention K/V of ``frontend_len`` frames."""
+        cfg = self.cfg
         dev = resolve_device(device)
-        dtype = torch_dtype(self.cfg.dtype)
-        layers = tuple(tf.group_init_cache(g, self.cfg, batch_size, cache_len, dtype, dev)
-                       for g in self.cfg.decoder_program())
+        dtype = torch_dtype(cfg.dtype)
+        mem_len = cfg.frontend_len if cfg.is_encdec else 0
+        layers = tuple(tf.group_init_cache(g, cfg, batch_size, cache_len, dtype, dev,
+                                           memory_len=mem_len)
+                       for g in cfg.decoder_program())
         return DecodeState(layers, torch.zeros((batch_size,), dtype=torch.int64, device=dev))
 
     def prefill(self, params, batch, cache_len: int, prompt_lens=None):
@@ -335,24 +395,29 @@ class Model:
         (B,1,V) fp32, DecodeState).
 
         ``prompt_lens (B,)``: valid prompt length per row for ragged batches
-        (tokens right-padded to the common length)."""
+        (tokens right-padded to the common length). A VLM's patch prefix
+        takes the first F positions of the cache, so ``pos`` is F + the
+        prompt length."""
         cfg = self.cfg
         B, T = batch["tokens"].shape
-        if cache_len < T:
-            raise ValueError(f"cache_len {cache_len} < prompt {T}: the KV write would clip")
+        F = self._prefix_len
+        if cache_len < F + T:
+            raise ValueError(f"cache_len {cache_len} < frontend {F} + prompt {T}: the KV write "
+                             f"would clip")
         if prompt_lens is not None and self._has_recurrent_state():
             raise ValueError("ragged prefill (prompt_lens) unsupported for recurrent-state archs")
         params = as_view(params)
-        x = embed_lookup(params.embed, batch["tokens"])
+        memory = self._encode(params, batch.get("frontend"))
+        x = self._decoder_input(params, batch)
         layers = []
         for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
-            x, c = tf.group_prefill(gp, x, g, cfg, cache_len)
+            x, c = tf.group_prefill(gp, x, g, cfg, cache_len, memory=memory)
             layers.append(c)
         if prompt_lens is None:
-            pos = torch.full((B,), T, dtype=torch.int64, device=x.device)
+            pos = torch.full((B,), F + T, dtype=torch.int64, device=x.device)
         else:
-            pos = prompt_lens.to(device=x.device, dtype=torch.int64)
-        # last valid position per row
+            pos = F + prompt_lens.to(device=x.device, dtype=torch.int64)
+        # last valid position per row, in decoder-sequence coordinates
         x_last = x[torch.arange(B, device=x.device), pos - 1][:, None]
         return self._head(params, x_last), DecodeState(tuple(layers), pos)
 
@@ -410,10 +475,11 @@ class Model:
             temperature, top_k = sampling.temperature, sampling.top_k
             eos_id, pad_id = sampling.eos_id, sampling.pad_id
         B, T = batch["tokens"].shape
+        F = self._prefix_len
         if cache_len is None:
-            cache_len = T + max_new_tokens
-        if cache_len < T + max_new_tokens:
-            raise ValueError(f"cache_len {cache_len} < {T}+{max_new_tokens}")
+            cache_len = F + T + max_new_tokens
+        if cache_len < F + T + max_new_tokens:
+            raise ValueError(f"cache_len {cache_len} < {F}+{T}+{max_new_tokens}")
         logits, state = self.prefill(params, batch, cache_len, prompt_lens=prompt_lens)
         if generator is None:           # the JAX package's default key is PRNGKey(0)
             generator = torch.Generator(device=logits.device).manual_seed(0)

@@ -4,12 +4,12 @@
 Each ``Group(repeats, period)`` of the config's stack program holds its
 parameters stacked over ``repeats`` (leading axis), as the JAX package
 does; where the JAX package runs one ``lax.scan`` over that axis, the port
-runs a Python loop over the layer index. The attn, mlp, moe, mamba,
-rwkv_tmix and rwkv_cmix sublayers are ported; cross-attention raises (the
-verify step raises the JAX package's ``ValueError`` for the recurrent
-kinds). ``sub_apply`` and ``group_apply`` return the MoE aux loss beside
-the activations, summed over the group's layers as the JAX package's scan
-carries it.
+runs a Python loop over the layer index. Every sublayer kind of the JAX
+package is ported: attn, cross_attn (against the encoder's ``memory``),
+mlp, moe, mamba, rwkv_tmix and rwkv_cmix (the verify step raises the JAX
+package's ``ValueError`` for the recurrent kinds). ``sub_apply`` and
+``group_apply`` return the MoE aux loss beside the activations, summed
+over the group's layers as the JAX package's scan carries it.
 
 Caches are updated in place: attention K/V rows at the scatter site
 (``attention.decode_attention``), the recurrent states (mamba ``h``/
@@ -36,15 +36,11 @@ from repro_torch.models.layers import (ACC, dense_init, matmul_f32, mlp_apply, r
 RECURRENT = ("mamba", "rwkv_tmix", "rwkv_cmix")
 
 
-def _not_ported(kind):
-    return NotImplementedError(f"sublayer kind {kind!r}: not yet ported to repro_torch")
-
-
 # ------------------------------------------------------------------- init --
 def sub_init(gen, sub: Sub, cfg: ModelConfig, dtype, repeats: int):
     """Parameters of ``repeats`` stacked copies of one sublayer."""
     p = {"norm": rms_norm_init((repeats, cfg.d_model), dtype, gen.device)}
-    if sub.kind == "attn":
+    if sub.kind in ("attn", "cross_attn"):
         p.update(attn.attn_init(gen, cfg, dtype, repeats))
     elif sub.kind == "mlp":
         d, f = cfg.d_model, cfg.d_ff
@@ -64,7 +60,7 @@ def sub_init(gen, sub: Sub, cfg: ModelConfig, dtype, repeats: int):
     elif sub.kind == "rwkv_cmix":
         p.update(rwkv_lib.rwkv_cmix_init(gen, cfg, dtype, repeats))
     else:
-        raise _not_ported(sub.kind)
+        raise ValueError(sub.kind)
     return p
 
 
@@ -80,12 +76,16 @@ def layer_params(group_params, layer: int) -> dict:
 
 
 # ---------------------------------------------------------------- forward --
-def sub_apply(p, x, sub: Sub, cfg: ModelConfig, positions=None):
+def sub_apply(p, x, sub: Sub, cfg: ModelConfig, memory=None, positions=None):
     """Pre-norm residual sublayer: (x + f(rms_norm(x)), aux) where aux is
     the MoE aux loss (f32 scalar), None for the other kinds.
-    Attention takes the flash kernels above ``cfg.flash_min_len``, else the
-    config's ``attention_impl``: "banded" for windowed layers, "flash" (the
-    blocked online softmax in torch) for causal ones, "masked" otherwise."""
+    Causal self-attention takes the flash kernels above
+    ``cfg.flash_min_len``, else the config's ``attention_impl``: "banded"
+    for windowed layers, "flash" (the blocked online softmax in torch) for
+    causal ones, "masked" otherwise; non-causal self-attention (the
+    encoder's) takes the masked path, as in the JAX package. Cross-attention
+    attends to ``memory`` (B, F, D) on the masked path, without a mask or
+    rotary embedding."""
     aux = None
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     impl = cfg.attention_impl
@@ -101,6 +101,8 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, positions=None):
         else:
             out = attn.full_attention(p, h, cfg, causal=sub.causal, window=sub.window,
                                       positions=positions)
+    elif sub.kind == "cross_attn":
+        out = attn.full_attention(p, h, cfg, causal=False, x_kv=memory, rope=False)
     elif sub.kind == "mlp":
         out = mlp_apply(p, h, cfg.act)
     elif sub.kind == "moe":
@@ -112,7 +114,7 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, positions=None):
     elif sub.kind == "rwkv_cmix":
         out = rwkv_lib.rwkv_cmix_apply(p, h, cfg)
     else:
-        raise _not_ported(sub.kind)
+        raise ValueError(sub.kind)
     return x + out, aux
 
 
@@ -134,19 +136,23 @@ def check_remat(remat: str):
         raise ValueError(f"remat {remat!r}: one of {REMAT_MODES}")
 
 
-def group_apply(params, x, group: Group, cfg: ModelConfig, positions=None, remat: str = "none"):
+def group_apply(params, x, group: Group, cfg: ModelConfig, memory=None, positions=None,
+                remat: str = "none"):
     """Full-sequence forward through one group (loop over its layers) →
-    (x, aux summed over the layers).
+    (x, aux summed over the layers). ``memory``: the encoder's output, for
+    the cross-attention sublayers.
 
     ``remat`` rematerialises each layer's body in the backward pass, as the
     JAX package's ``jax.checkpoint`` of its scan body: "full" saves only
-    the layer's input, "dots" also the outputs of its 2-D products."""
+    the layer's inputs, "dots" also the outputs of its 2-D products.
+    ``memory`` is one of those inputs, so the encoder's gradient flows
+    through the checkpointed layers."""
     check_remat(remat)
 
-    def body(h, lp):
+    def body(h, lp, memory):
         aux = None
         for i, s in enumerate(group.period):
-            h, a = sub_apply(lp[f"sub{i}"], h, s, cfg, positions=positions)
+            h, a = sub_apply(lp[f"sub{i}"], h, s, cfg, memory=memory, positions=positions)
             if a is not None:
                 aux = a if aux is None else aux + a
         return h, aux
@@ -155,12 +161,13 @@ def group_apply(params, x, group: Group, cfg: ModelConfig, positions=None, remat
     for layer in range(group.repeats):
         lp = layer_params(params, layer)
         if remat == "none":
-            x, a = body(x, lp)
+            x, a = body(x, lp, memory)
         elif remat == "full":
-            x, a = checkpoint(body, x, lp, use_reentrant=False)
+            x, a = checkpoint(body, x, lp, memory, use_reentrant=False)
         else:
-            x, a = checkpoint(body, x, lp, use_reentrant=False, context_fn=functools.partial(
-                create_selective_checkpoint_contexts, _dots_policy))
+            x, a = checkpoint(body, x, lp, memory, use_reentrant=False,
+                              context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                           _dots_policy))
         if a is not None:
             aux = a if aux is None else aux + a
     return x, (torch.zeros((), dtype=ACC, device=x.device) if aux is None else aux)
@@ -188,6 +195,8 @@ def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if sub.kind == "attn":
         out, nc = attn.decode_attention(p, h, cfg, cache, pos, window=sub.window, active=active)
+    elif sub.kind == "cross_attn":
+        out, nc = attn.cross_decode(p, h, cfg, cache), cache
     elif sub.kind == "mlp":
         out, nc = mlp_apply(p, h, cfg.act), None
     elif sub.kind == "moe":
@@ -198,7 +207,7 @@ def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
         out, new = step(p, h, cfg, cache)
         nc = _freeze_rows(new, cache, active)
     else:
-        raise _not_ported(sub.kind)
+        raise ValueError(sub.kind)
     return x + out, nc
 
 
@@ -233,7 +242,7 @@ def sub_verify(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
     elif sub.kind == "moe":
         out, nc = moe_lib.moe_apply(p, h, cfg)[0], None
     elif sub.kind == "cross_attn":
-        raise _not_ported(sub.kind)
+        out, nc = attn.cross_decode(p, h, cfg, cache), cache
     else:
         raise ValueError(f"verify step unsupported for recurrent sublayer {sub.kind!r}: "
                          f"SSM/RWKV state has no structural rollback")
@@ -246,13 +255,18 @@ def group_verify(params, x, group: Group, cfg: ModelConfig, caches, pos, active=
     return _group_step(sub_verify, params, x, group, cfg, caches, pos, active)
 
 
-def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, device):
-    """Zero caches stacked over repeats. Only caching subs get entries."""
+def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, device,
+                     memory_len: int = 0):
+    """Zero caches stacked over repeats. Only caching subs get entries:
+    self-attention K/V of ``cache_len`` positions, cross-attention K/V of
+    the memory's ``memory_len``, the recurrent states."""
     caches = {}
     for i, s in enumerate(group.period):
         key, R = f"sub{i}", group.repeats
         if s.kind == "attn":
             caches[key] = attn.init_kv_cache(cfg, batch, cache_len, dtype, device, R)
+        elif s.kind == "cross_attn":
+            caches[key] = attn.init_kv_cache(cfg, batch, memory_len, dtype, device, R)
         elif s.kind == "mamba":
             caches[key] = ssm_lib.mamba_init_state(cfg, batch, dtype, device, R)
         elif s.kind == "rwkv_tmix":
@@ -261,18 +275,21 @@ def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, de
             caches[key] = {"last_x": torch.zeros((R, batch, cfg.d_model), dtype=dtype,
                                                  device=device)}
         elif s.kind not in ("mlp", "moe"):
-            raise _not_ported(s.kind)
+            raise ValueError(s.kind)
     return caches
 
 
 # ---------------------------------------------------------------- prefill --
-def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len):
+def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len, memory=None):
     """Forward + cache construction: each attention layer's K/V are written
     into a zeroed cache, then the sublayer runs through ``sub_apply``; each
-    recurrent sublayer runs its parallel path and writes its decode state
-    after the last token (``_mixer_prefill``)."""
+    cross-attention layer's cache holds the K/V of ``memory``
+    (``attention.cross_kv``); each recurrent sublayer runs its parallel
+    path and writes its decode state after the last token
+    (``_mixer_prefill``)."""
     B, L, _ = x.shape
-    caches = group_init_cache(group, cfg, B, cache_len, x.dtype, x.device)
+    caches = group_init_cache(group, cfg, B, cache_len, x.dtype, x.device,
+                              memory_len=0 if memory is None else memory.shape[1])
     positions = attn._positions(B, L, x.device)
     for layer in range(group.repeats):
         lp = layer_params(params, layer)
@@ -284,12 +301,15 @@ def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len):
                 _, k, v = attn._qkv(p, hn, hn, cfg, positions, positions)
                 caches[key]["k"][layer, :, :L] = k
                 caches[key]["v"][layer, :, :L] = v
+            elif s.kind == "cross_attn":
+                for name, t in attn.cross_kv(p, memory, cfg).items():
+                    caches[key][name][layer] = t
             if s.kind in RECURRENT:
                 x, state = _mixer_prefill(p, x, s, cfg)
                 for name, t in state.items():
                     caches[key][name][layer] = t
             else:
-                x, _ = sub_apply(p, x, s, cfg)
+                x, _ = sub_apply(p, x, s, cfg, memory=memory)
     return x, caches
 
 

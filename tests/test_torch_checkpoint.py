@@ -49,7 +49,7 @@ from repro.models.model import build_model as jax_build
 from repro.train import checkpoint as jckpt
 from repro.train import train_loop as jtl
 from repro_torch.configs import get_config
-from repro_torch.convert import key_from_seed, tensor_to_numpy
+from repro_torch.convert import key_from_seed, tensor_from_numpy, tensor_to_numpy
 from repro_torch.core import bucketing
 from repro_torch.core.collage import CollageAdamW
 from repro_torch.core.precision import BucketPolicy, PrecisionPolicy, parse_strategy
@@ -74,7 +74,10 @@ def _batch_np(step, L=32, B=4):
 
 
 def _to_torch(batch):
-    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in batch.items()}
+    """Tokens as int64; the frontend families' embeddings (bf16 from the
+    JAX corpus) bit for bit."""
+    return {k: torch.from_numpy(v.astype(np.int64)) if v.dtype.kind in "iu"
+            else tensor_from_numpy(v, "cpu") for k, v in batch.items()}
 
 
 def _jax_opt(name, bucketed, **bucket_kw):
@@ -203,7 +206,7 @@ def test_port_bucketed_checkpoint_restores_into_reference(name, tmp_path):
 # conv_w, x_proj, dt_proj, dt_bias, A_log, D, out_proj) beside NoPE
 # attention and MoE
 FAMILIES = {"qwen3-moe-30b-a3b": {}, "gemma3-27b": {"n_layers": 10}, "rwkv6-1.6b": {},
-            "jamba-1.5-large-398b": {}}
+            "jamba-1.5-large-398b": {}, "seamless-m4t-medium": {}, "internvl2-1b": {}}
 
 
 def _family_cfgs(arch):
@@ -244,6 +247,7 @@ def test_family_checkpoints_cross_both_ways(arch, bucketed, tmp_path):
     assert ("w_a" in names) == (arch == "rwkv6-1.6b")
     assert ("lm_head" in names) == (not tcfg.tie_embeddings)
     assert ("['groups'][1]" in names) == (arch == "gemma3-27b")
+    assert ("'encoder'" in names) == (arch == "seamless-m4t-medium")
 
     ts = ttl.init_state(tm, topt, 2, device="cpu")
     step = ttl.make_train_step(tm, topt)

@@ -508,3 +508,103 @@ def test_recurrent_slot_arena_makes_no_host_sync_on_card(arch):
             for name, t in sub.items():
                 assert torch.equal(t[:, [3, 0]], ref[key][name][:, :2]), (key, name)
                 assert not t[:, [1, 2]].any(), (key, name)
+
+
+def _frontend_smoke(arch, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+    return build_model(cfg), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_frontend_families_on_card_match_the_cpu(arch):
+    """Cross-attention over the encoder's memory (seamless) and the decoder's
+    patch prefix (internvl2), smoke size in f32: the forward, a ragged
+    prefill and three decode steps on the card against the same weights on
+    the CPU (rtol/atol 1e-4, tests/test_torch_families.py's f32 tolerance),
+    and the same positions."""
+    _card()
+    import numpy as np
+
+    from repro_torch.models.model import ParamTree, param_dict
+
+    model, cfg = _frontend_smoke(arch, "float32")
+    p = model.init(0, device="cpu")
+    pc = ParamTree(_map(param_dict(p), lambda t: t.cuda()))
+    g = np.random.default_rng(0)
+    toks = torch.from_numpy(g.integers(2, cfg.vocab_size, size=(3, 12)))
+    fe = torch.from_numpy(g.standard_normal((3, cfg.frontend_len, cfg.d_model),
+                                            dtype=np.float32) * 0.1)
+    batch = {"tokens": toks, "frontend": fe}
+    cbatch = {k: v.cuda() for k, v in batch.items()}
+    close = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(model.forward(pc, cbatch)[0].cpu(), model.forward(p, batch)[0],
+                               **close)
+    lens = torch.tensor([12, 5, 9])
+    lg, st = model.prefill(p, batch, 24, prompt_lens=lens)
+    lgc, stc = model.prefill(pc, cbatch, 24, prompt_lens=lens.cuda())
+    torch.testing.assert_close(lgc.cpu(), lg, **close)
+    for t in range(3):
+        nxt = toks[:, t:t + 1]
+        lg, st = model.decode_step(p, st, nxt)
+        lgc, stc = model.decode_step(pc, stc, nxt.cuda())
+        torch.testing.assert_close(lgc.cpu(), lg, **close)
+    assert stc.pos.tolist() == st.pos.tolist() == (model._prefix_len + lens + 3).tolist()
+
+
+def _map(node, fn):
+    if isinstance(node, dict):
+        return {k: _map(v, fn) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map(v, fn) for v in node]
+    return fn(node)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b"])
+def test_frontend_slot_arena_makes_no_host_sync_on_card(arch):
+    """A frontend arch (smoke size, bf16): init_slot_state, prefill_into of
+    a ragged batch with its frontends and a dummy row (zero frontend, slot
+    index past the arena), and a decode segment read nothing back to the
+    host (torch.cuda's sync debug mode raises on any synchronising call);
+    the live rows, cross-attention caches included, equal a closed
+    prefill's bit for bit and the other slots stay zero."""
+    _card()
+    import numpy as np
+
+    model, cfg = _frontend_smoke(arch, "bfloat16")
+    params = model.init(0, device="cuda")
+    g = np.random.default_rng(1)
+    toks = torch.from_numpy(g.integers(2, cfg.vocab_size, size=(3, 16))).cuda()
+    fe = torch.from_numpy(g.standard_normal((3, cfg.frontend_len, cfg.d_model),
+                                            dtype=np.float32) * 0.1).cuda()
+    fe[2] = 0                                        # the dummy row's zero frontend
+    batch = {"tokens": toks, "frontend": fe}
+    lens = torch.tensor([16, 9, 16], device="cuda")
+    F, S = model._prefix_len, 64
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slots = model.init_slot_state(4, S, device="cuda")
+        model.prefill_into(params, slots, batch, [3, 0, 4], [8, 8, 1], cache_len=S,
+                           prompt_lens=lens)
+        model.decode_segment(params, slots, seg_len=4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert slots.n_gen.tolist() == [5, 0, 0, 5]
+    assert slots.state.pos.tolist() == [F + 9 + 4, 0, 0, F + 16 + 4]
+    fresh = model.init_slot_state(4, S, device="cuda")
+    model.prefill_into(params, fresh, batch, [3, 0, 4], [8, 8, 1], cache_len=S,
+                       prompt_lens=lens)
+    _, closed = model.prefill(params, batch, S, prompt_lens=lens)
+    for arena, ref in zip(fresh.state.layers, closed.layers):
+        for key, sub in arena.items():
+            for name, t in sub.items():
+                assert torch.equal(t[:, [3, 0]], ref[key][name][:, :2]), (key, name)
+                assert not t[:, [1, 2]].any(), (key, name)

@@ -4,7 +4,7 @@ codeqwen1.5-7b) against the JAX package at smoke size, with the JAX
 package's own initial weights moved over by ``params_from_numpy``:
 
 * ``get_config``: CONFIG and SMOKE equal to the reference's field by field;
-  the two frontend families still raise;
+  every family resolves (none is left to port);
 * the parameter tree's names and shapes, and the full CONFIGs' shapes on
   the meta device against ``jax.eval_shape`` of the reference's init;
 * forward logits and the MoE aux loss at tests/test_torch_model.py's
@@ -80,10 +80,17 @@ def test_configs_equal_the_reference(arch):
 
 
 def test_other_families_still_raise():
-    assert sorted(tconfigs.NOT_YET_PORTED) == sorted(["seamless-m4t-medium", "internvl2-1b"])
-    for arch in tconfigs.NOT_YET_PORTED:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(arch)
+    """No family is left to port (seamless-m4t and internvl2 were the last):
+    ``NOT_YET_PORTED`` is empty, the port's registry holds every arch of the
+    JAX package's and each resolves; an unknown arch raises KeyError."""
+    from repro.configs import ARCHS as JAX_ARCHS
+
+    assert tconfigs.NOT_YET_PORTED == ()
+    assert sorted(tconfigs.ARCHS) == sorted(k for k in JAX_ARCHS if not k.startswith("gpt"))
+    for arch in tconfigs.ARCHS:
+        assert get_config(arch).name == get_config(arch, smoke=True).name == arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
