@@ -27,7 +27,9 @@ masked to 32 bits; products are split so that no int64 product overflows.
 role array bit-exactly between two layouts (a checkpoint written under
 another size cap or pad multiple).
 
-Not ported yet: ``bucket_close_ranks``/``readiness_order`` (distributed).
+``bucket_close_ranks``/``readiness_order``: at which point of the backward
+pass each bucket's gradient is complete, and the order the buckets'
+collectives may launch in.
 """
 
 from __future__ import annotations
@@ -192,6 +194,27 @@ def build_layout(params: Any, *, max_bucket_elems: Optional[int] = None,
 # --------------------------------------------------------------------------
 # bucket / unbucket
 # --------------------------------------------------------------------------
+
+def bucket_close_ranks(layout: BucketLayout, leaf_ranks: Sequence[int]) -> tuple:
+    """Per-bucket readiness rank: the rank at which the bucket closes, the
+    max over its leaves of ``leaf_ranks[i]`` (the point, in any monotone
+    unit, at which leaf i's gradient is ready; leaves in ``layout.slots``
+    order)."""
+    if len(leaf_ranks) != len(layout.slots):
+        raise ValueError(f"{len(leaf_ranks)} ranks for {len(layout.slots)} leaves")
+    close = [None] * layout.n_buckets
+    for slot, r in zip(layout.slots, leaf_ranks):
+        if close[slot.bucket] is None or r > close[slot.bucket]:
+            close[slot.bucket] = r
+    return tuple(close)
+
+
+def readiness_order(layout: BucketLayout, leaf_ranks: Sequence[int]) -> tuple:
+    """Bucket indices sorted by close rank (ties: layout order): the order
+    in which the buckets' gradient collectives become launchable."""
+    close = bucket_close_ranks(layout, leaf_ranks)
+    return tuple(sorted(range(layout.n_buckets), key=lambda b: (close[b], b)))
+
 
 def bucket_leaves(leaves: Sequence[torch.Tensor], layout: BucketLayout, dtype=None) -> tuple:
     """Concatenate per-leaf tensors into the layout's flat buckets (``dtype``

@@ -27,8 +27,11 @@ and passed to the update by value, so a step never synchronises with the
 card to read them. numpy's float32 ``pow``/``cos`` may differ from XLA's in
 the last bit at some steps; parity tests feed the JAX package's scalars.
 
-Not ported yet: ``step(..., metrics_partials=True)`` (only the sharded
-pipeline engine calls it); it raises ``NotImplementedError``.
+``step(..., metrics_partials=True)`` returns the raw per-leaf metric
+partials in place of the StepMetrics (the pipeline engine sums the stage
+leaves' and the shared leaves' apart and finalizes once);
+``step_bucketed(..., metrics_partials=True)`` their sum over the buckets
+(the ZeRO engine sums them over the dp ranks and finalizes once).
 """
 
 from __future__ import annotations
@@ -114,28 +117,33 @@ class CollageAdamW:
         return bucket_state(self.init(params), params, layout, self.policy,
                             sr_seed=self.sr_seed)
 
-    def step_bucketed(self, grads, bparams, bstate, *, elem_offsets=None, reduce_fn=None,
-                      donate=False):
+    def step_bucketed(self, grads, bparams, bstate, *, metrics_partials: bool = False,
+                      elem_offsets=None, reduce_fn=None, donate=False):
         """One step over buckets: one fused update per bucket (``donate``:
-        written over the old buckets)."""
+        written over the old buckets). ``metrics_partials``: the raw summed
+        metric partials in place of the StepMetrics."""
         from repro_torch.kernels.collage_update import ops as kops
-        return kops.bucketed_step(self, grads, bparams, bstate, elem_offsets=elem_offsets,
+        return kops.bucketed_step(self, grads, bparams, bstate,
+                                  metrics_partials=metrics_partials, elem_offsets=elem_offsets,
                                   reduce_fn=reduce_fn, donate=donate)
 
     def step(self, grads, params, state: CollageOptState, *, metrics_partials: bool = False,
              scalars=None):
         """One tree-layout step → ``(new_params, new_state, StepMetrics)``.
         ``scalars``: (lr, bc1, bc2) to use in place of the host-computed ones
-        (parity tests feed the JAX package's)."""
+        (parity tests feed the JAX package's). ``metrics_partials``: in
+        place of the StepMetrics, the per-leaf raw partials (⟨Δθ,Δθ̂⟩,
+        ‖Δθ‖², ‖Δθ̂‖², #lost, ‖g‖²), a list in leaf order (zeros without
+        ``compute_metrics``): plain sums, so a caller may add those of
+        several leaves or shards and finalize once."""
         from repro_torch.kernels.collage_update import ops as kops
 
-        if metrics_partials:
-            raise NotImplementedError("CollageAdamW.step(metrics_partials=True) (per-leaf "
-                                      "partials of the pipeline engine): not yet ported to "
-                                      "repro_torch")
         t = state.step + 1
         lr, bc1, bc2 = scalars if scalars is not None else kops._scalars(self, t)
         if self.use_fused_kernel:
+            if metrics_partials:
+                raise ValueError("metrics_partials is a tree-layout feature (per-leaf "
+                                 "partials); the fused shim reduces per bucket")
             return kops.fused_step(self, grads, params, state, scalars=(lr, bc1, bc2))
 
         s = self.policy.strategy
@@ -160,7 +168,9 @@ class CollageAdamW:
                 parts.append(self._leaf_partials(args[0], upd, eff))
         new_p, new_m, new_v, new_d, new_w = map(list, zip(*outs))
 
-        if self.compute_metrics:
+        if metrics_partials:
+            metrics = parts if self.compute_metrics else [kops._zeros5(dev) for _ in range(n)]
+        elif self.compute_metrics:
             metrics = kops.finalize_metrics(kops.sum_partials(parts, dev),
                                             sum(g.numel() for g in leaves_g))
         else:

@@ -10,6 +10,15 @@ never contracts a multiply and an add into an FMA, so these functions are
 bit-identical to the JAX ones; ``torch.compile`` must not be put over them
 (a fused FMA erases the roundoff the transformations keep).
 
+The two fp8 formats of gradient compression (``float8_e4m3fn`` and
+``float8_e5m2``) round as ``lax.reduce_precision`` with (exponent,
+mantissa) bits (4, 3) and (5, 2) does: ``_reduce_precision`` is that
+function on the f32 bit pattern, so the e4m3 grid tops out at 240 (not
+e4m3fn's storage maximum 448), values past the grid's rounding edge become
+±inf and the grid's subnormals are flushed to zero. ``x.to(float8_e4m3fn)``
+is not that function (it keeps subnormals and gives NaN past 448); it is
+used only to store a value already on the grid.
+
 ``stochastic_round`` takes its random bits as an argument: the JAX package
 draws them from a threefry key, which the port cannot reproduce; its
 callers draw them from the counter-based stream of ``core.bucketing``
@@ -23,12 +32,37 @@ import dataclasses
 import torch
 
 from repro_torch.core import bucketing
+from repro_torch.core.bucketing import MASK32
 
 F32 = torch.float32
 
 # significand bits (incl. hidden bit) and minimum normal exponent
-_SIG_BITS = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}
-_EMIN = {torch.bfloat16: -126, torch.float16: -14, torch.float32: -126}
+_SIG_BITS = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24,
+             torch.float8_e4m3fn: 4, torch.float8_e5m2: 3}
+_EMIN = {torch.bfloat16: -126, torch.float16: -14, torch.float32: -126,
+         torch.float8_e4m3fn: -6, torch.float8_e5m2: -14}
+# (exponent bits, mantissa bits) of the formats rounded by ``_reduce_precision``
+_FP8_FMT = {torch.float8_e4m3fn: (4, 3), torch.float8_e5m2: (5, 2)}
+
+
+def _reduce_precision(x32, eb: int, mb: int):
+    """``lax.reduce_precision(x32, eb, mb)`` on the f32 bit pattern: round
+    the mantissa to ``mb`` bits (nearest, ties to even), then send exponents
+    above the format's largest to ±inf and those at or below its smallest
+    normal's predecessor to ±0; NaN stays NaN. uint32 arithmetic in int64
+    masked to 32 bits."""
+    xi = x32.contiguous().view(torch.int32).to(torch.int64) & MASK32
+    shift = 23 - mb
+    last = 1 << shift
+    bias = ((xi & last) >> shift) + ((last >> 1) - 1)
+    xi = ((xi + bias) & MASK32) & (~(last - 1) & MASK32)
+    ebias = (1 << (eb - 1)) - 1
+    exp = xi & 0x7F800000
+    sign = xi & 0x80000000
+    xi = torch.where(exp > ((127 + ebias) << 23), sign | 0x7F800000, xi)
+    xi = torch.where(exp <= ((127 - ebias) << 23), sign, xi)
+    out = torch.where(xi >= 2**31, xi - 2**32, xi).to(torch.int32).view(F32)
+    return torch.where(torch.isnan(x32), x32, out)
 
 
 class StrictFPU:
@@ -43,6 +77,8 @@ class StrictFPU:
 
     def rn(self, x32):
         """Round-to-nearest-even onto the target grid (stays f32)."""
+        if self.dtype in _FP8_FMT:
+            return _reduce_precision(x32.to(F32), *_FP8_FMT[self.dtype])
         return x32.to(self.dtype).to(F32)
 
     def load(self, x):

@@ -92,12 +92,15 @@ def _scalars(opt, t: int):
 
 
 def bucketed_step(opt, grads, bparams: bucketing.BucketedParams,
-                  bstate: bucketing.BucketedOptState, *, elem_offsets=None, reduce_fn=None,
-                  scalars=None, donate=False):
+                  bstate: bucketing.BucketedOptState, *, metrics_partials=False,
+                  elem_offsets=None, reduce_fn=None, scalars=None, donate=False):
     """One optimizer step over persistent buckets → (new BucketedParams, new
     BucketedOptState, StepMetrics).
 
     ``grads``: a BucketedParams or a tuple of flat bucket tensors.
+    ``metrics_partials``: return the raw summed metric partials (a 5-tuple
+    of f32 0-dim tensors) in place of the StepMetrics: a ZeRO caller sums
+    them over the ranks and calls ``finalize_metrics`` once.
     ``elem_offsets`` (SR): per-bucket element offsets of this caller's shard
     in the full bucket. ``reduce_fn``: ``(bucket index, grad) → grad`` hook
     run just before each bucket's update. ``scalars``: (lr, bc1, bc2) to use
@@ -134,7 +137,9 @@ def bucketed_step(opt, grads, bparams: bucketing.BucketedParams,
             partials.append(part)
 
     device = bparams.data[0].device
-    if opt.compute_metrics:
+    if metrics_partials:
+        metrics = sum_partials(partials, device) if opt.compute_metrics else _zeros5(device)
+    elif opt.compute_metrics:
         metrics = finalize_metrics(sum_partials(partials, device), layout.total_size)
     else:
         metrics = StepMetrics(*_zeros5(device))

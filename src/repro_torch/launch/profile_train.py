@@ -70,7 +70,7 @@ def main(argv=None):
         "--arch", args.arch, "--precision", "C", "--bucketed", "--fused-kernel",
         "--flash-min-len", "256", "--seq-len", str(args.seq_len), "--batch", str(args.batch),
         "--steps", str(3 + args.steps), "--warmup", "2", "--remat", args.remat])
-    cfg, model, opt, step_fn, batch_fn, dev = tlaunch.build(targs)
+    cfg, model, opt, step_fn, batch_fn, dev, _ = tlaunch.build(targs)
     if args.layers is not None:
         model = build_model(dataclasses.replace(cfg, n_layers=args.layers, flash_min_len=256))
         step_fn = train_loop.make_train_step(model, opt, flash_min_len=256, remat=args.remat,

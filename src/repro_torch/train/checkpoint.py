@@ -23,6 +23,13 @@ stored one the template lacks is dropped; any other mismatch raises.
 ``restore_bucketed`` migrates a checkpoint written under another bucket
 partitioning onto the template's layout, bit-exactly.
 
+``save_sharded``/``restore_sharded`` serve the sharded engine
+(``train.sharded``): the ranks gather the global state (ZeRO shards
+whole, one residual row per rank) and rank 0 writes it in this format;
+a restore reads the global state and hands each rank its part. So a ZeRO
+checkpoint restores into a single-rank run and the other way round
+(residual rows of another rank count are zero-filled), in either package.
+
 bf16 crosses numpy as uint16: this module needs no ml_dtypes.
 """
 
@@ -191,6 +198,35 @@ def restore_bucketed(ckpt_dir: str, step: int, template, *, verify: bool = True)
     old_template = bucketing.state_template_for_layout(template, old_layout)
     state, extra = restore(ckpt_dir, step, old_template, verify=verify)
     return bucketing.migrate(state, layout), extra
+
+
+def save_sharded(ckpt_dir: str, step: int, state, mesh, *, zero_shard: bool,
+                 pipeline_axis: Optional[str] = None, keep_last: int = 3,
+                 extra: Optional[dict] = None) -> Optional[str]:
+    """``save`` of a sharded engine's state: every rank calls it; the
+    global state is gathered and rank 0 writes it. Returns rank 0's step
+    directory (None on the other ranks)."""
+    from repro_torch.train import sharded
+    full = sharded.gather_state(state, mesh, zero_shard=zero_shard,
+                                pipeline_axis=pipeline_axis)
+    path = None
+    if mesh.dp.rank == 0:
+        path = save(ckpt_dir, step, full, keep_last=keep_last, extra=extra)
+    if mesh.dp.distributed:
+        torch.distributed.barrier(group=mesh.dp.group)
+    return path
+
+
+def restore_sharded(ckpt_dir: str, step: int, template, mesh, *, zero_shard: bool,
+                    pipeline_axis: Optional[str] = None, verify: bool = True):
+    """``restore_bucketed`` into a sharded engine's state: the global state
+    is read (its template gathered from ``template``, this rank's part) and
+    this rank keeps its part. Returns ``(state, extra)``."""
+    from repro_torch.train import sharded
+    kw = dict(zero_shard=zero_shard, pipeline_axis=pipeline_axis)
+    full, extra = restore_bucketed(ckpt_dir, step, sharded.gather_state(template, mesh, **kw),
+                                   verify=verify)
+    return sharded.shard_state(full, mesh, **kw), extra
 
 
 def _gc(ckpt_dir: str, keep_last: int):

@@ -55,11 +55,15 @@ class RunSupervisor:
     straggler), ``stragglers`` the deadline misses among them."""
 
     def __init__(self, cfg: SupervisorConfig, *,
-                 fault_hook: Optional[Callable[[int], None]] = None):
+                 fault_hook: Optional[Callable[[int], None]] = None,
+                 save_fn: Optional[Callable] = None, restore_fn: Optional[Callable] = None):
         if cfg.ckpt_every < 1:
             raise ValueError(f"ckpt_every {cfg.ckpt_every} < 1")
         self.cfg = cfg
         self.fault_hook = fault_hook
+        # the sharded engine's gather-then-write and read-then-shard
+        self.save_fn = save_fn or ckpt_lib.save
+        self.restore_fn = restore_fn or ckpt_lib.restore_bucketed
         self.recoveries: list[int] = []
         self.stragglers: list[int] = []
         self.step_times: list[float] = []
@@ -93,7 +97,7 @@ class RunSupervisor:
                     raise RuntimeError("fault before first checkpoint") from e
                 self.recoveries.append(step)
                 tmpl = state if template is None else template
-                state, extra = ckpt_lib.restore_bucketed(ckpt_dir, restore_step, tmpl)
+                state, extra = self.restore_fn(ckpt_dir, restore_step, tmpl)
                 step = extra["step"]
                 continue
             dt = time.monotonic() - t0
@@ -106,6 +110,6 @@ class RunSupervisor:
                 self.step_times.append(dt)
             step += 1
             if ckpt_dir is not None and (step % self.cfg.ckpt_every == 0 or step == n_steps):
-                ckpt_lib.save(ckpt_dir, step, state, keep_last=self.cfg.keep_last,
-                              extra={"step": step})
+                self.save_fn(ckpt_dir, step, state, keep_last=self.cfg.keep_last,
+                             extra={"step": step})
         return state, step, last_metrics

@@ -17,8 +17,14 @@ nothing (the optimizer's update is functional, as the JAX package's). With
 the new parameters and state over the old buckets, as a jit with donated
 arguments does: one copy of the optimizer state on the card, not two.
 
-Not ported yet: gradient compression (``grad_compression`` other than
-"none") and the sharded collective (``psum_axis``).
+Gradient compression (``grad_compression``: "bf16", "fp8", with "_ef" the
+error-feedback residual): on the bucket layout one round trip per bucket,
+the residual rows in ``BucketedOptState.grad_err``; on the tree layout one
+per leaf, the residual in ``TrainState.grad_err``. Without ``psum_axis``
+the round trip is local (it models the wire loss of a single program);
+with ``psum_axis`` (a ``distributed.collectives.Axis``) the payload is
+reduced over the ranks (``distributed.compression``). The sharded engine
+(``train.sharded``) reuses ``make_accum_grads`` and ``TrainState``.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from repro_torch.convert import key_from_seed, seed_from_key
 from repro_torch.core import bucketing
 from repro_torch.core.collage import CollageAdamW, CollageOptState
 from repro_torch.core.mcf import Expansion
-from repro_torch.launch.api import CapabilityError
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import compression
 from repro_torch.models.model import Model, param_dict
 from repro_torch.models.transformer import check_remat
 
@@ -42,7 +49,7 @@ from repro_torch.models.transformer import check_remat
 class TrainState:
     params: Any                      # BucketedParams, or the model's nested dict
     opt_state: Any                   # BucketedOptState, or CollageOptState
-    grad_err: Optional[Any] = None   # EF residual of gradient compression (not ported)
+    grad_err: Optional[Any] = None   # per-leaf EF residual (tree layout)
 
     def map_named(self, fn: Callable[[str, Any], Any]) -> "TrainState":
         """A TrainState of the same structure with every stored array ``a``
@@ -93,25 +100,36 @@ def _named(fn, prefix: str, tree):
     return fn(prefix, tree)
 
 
-def _check_compression(grad_compression: str):
-    if grad_compression != "none":
-        raise CapabilityError(f"grad_compression {grad_compression!r}: not yet ported to "
-                              "repro_torch (only 'none')")
-
-
 def init_state(model: Model, opt: CollageAdamW, seed: int = 0, grad_compression: str = "none",
                n_dp: Optional[int] = None, *, device="cuda") -> TrainState:
     """A fresh TrainState: parameters from ``model.init(seed)`` (bucketed
-    when the policy says so) and zeroed optimizer state."""
-    _check_compression(grad_compression)
-    if n_dp is not None:
-        raise NotImplementedError("n_dp (sharded engine): not yet ported to repro_torch")
+    when the policy says so), zeroed optimizer state and, with an "_ef"
+    compression, zeroed residuals built from the gradient structure.
+
+    ``n_dp``: None for the single-program step; the dp rank count (1
+    included) for the sharded engine, whose residuals always carry a
+    leading per-rank dim (the global state: ``sharded.shard_state``
+    hands each rank its row). Bucket residual rows are (1, padded) here and
+    (n_dp, padded) for n_dp > 1, as in the JAX package."""
     tree = bucketing.tree_unflatten(*_detached(param_dict(model.init(seed, device=device))))
     if opt.policy.bucketing.enabled:
         params, opt_state = opt.init_bucketed(tree)
     else:
         params, opt_state = tree, opt.init(tree)
-    return TrainState(params, opt_state, None)
+    dtype, use_ef = compression.parse_spec(grad_compression)
+    err = None
+    if use_ef:
+        if isinstance(params, bucketing.BucketedParams):
+            rows = compression.init_error_state(params, dtype)
+            if n_dp is not None and n_dp > 1:
+                rows = tuple(r.repeat(n_dp, 1) for r in rows)
+            opt_state = dataclasses.replace(opt_state, grad_err=rows)
+        else:
+            err = compression.init_error_state(params, dtype)
+            if n_dp is not None:
+                err = bucketing.tree_map(
+                    lambda e: e[None].repeat((n_dp,) + (1,) * e.dim()), err)
+    return TrainState(params, opt_state, err)
 
 
 def _detached(tree):
@@ -197,9 +215,9 @@ def _with_grad_leaves(grads, leaves):
     return bucketing.tree_unflatten(bucketing.tree_flatten_with_path(grads)[1], leaves)
 
 
-def _apply_opt(opt: CollageAdamW, grads, params, opt_state, donate=False):
+def _apply_opt(opt: CollageAdamW, grads, params, opt_state, donate=False, reduce_fn=None):
     if isinstance(params, bucketing.BucketedParams):
-        return opt.step_bucketed(grads, params, opt_state, donate=donate)
+        return opt.step_bucketed(grads, params, opt_state, donate=donate, reduce_fn=reduce_fn)
     if donate:
         raise ValueError("donate: the bucketed layout only (the tree step is per leaf)")
     return opt.step(grads, params, opt_state)
@@ -207,24 +225,47 @@ def _apply_opt(opt: CollageAdamW, grads, params, opt_state, donate=False):
 
 def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
                     remat: str = "none", grad_compression: str = "none",
-                    psum_axis: Optional[str] = None,
+                    psum_axis: Optional["coll.Axis"] = None,
                     flash_min_len: Optional[int] = None, donate: bool = False) -> Callable:
     """Build ``train_step(state, batch) → (state, metrics)``; metrics are
     0-dim tensors on the device (reading one synchronises). ``donate``
     (bucketed layout): the step writes the new state over the one it is
-    given, which must not be used again."""
-    _check_compression(grad_compression)
-    if psum_axis is not None:
-        raise NotImplementedError("psum_axis (sharded step): not yet ported to repro_torch")
+    given, which must not be used again.
+
+    ``psum_axis``: a ``collectives.Axis`` whose ranks each run this step on
+    their own batch; the gradients are averaged over them (compressed: the
+    payload on the wire is the compressed dtype). Without it compression
+    is a local round trip that models the wire loss."""
+    if psum_axis is not None and not isinstance(psum_axis, coll.Axis):
+        raise TypeError(f"psum_axis: a collectives.Axis, not {type(psum_axis).__name__}")
     accum_grads = make_accum_grads(model, microbatch=microbatch, remat=remat,
                                    flash_min_len=flash_min_len)
+    dtype, use_ef = compression.parse_spec(grad_compression)
+    n_dev = 1 if psum_axis is None else psum_axis.size
 
     def train_step(state: TrainState, batch):
         loss, lmetrics, grads = accum_grads(state.params, batch)
-        params, opt_state, om = _apply_opt(opt, grads, state.params, state.opt_state, donate)
+        grad_err, opt_state = state.grad_err, state.opt_state
+        reduce_fn = None
+        if dtype is not None or psum_axis is not None:
+            if isinstance(grads, bucketing.BucketedParams):
+                # one round trip per bucket, just before its update; the
+                # residual rows are per dp rank (this single program is row 0)
+                rows = tuple(e[0] for e in opt_state.grad_err) if use_ef else None
+                reduce_fn, new_rows = compression.bucket_reducer(
+                    rows, dtype, psum_axis, n_dev, grads.layout.n_buckets)
+            else:
+                grads, new_err = compression.reduce_tree(grads, grad_err if use_ef else None,
+                                                         dtype, psum_axis, n_dev)
+                if use_ef:
+                    grad_err = new_err
+        params, opt_state, om = _apply_opt(opt, grads, state.params, opt_state, donate,
+                                           reduce_fn)
+        if reduce_fn is not None and use_ef:
+            opt_state = dataclasses.replace(opt_state, grad_err=tuple(r[None] for r in new_rows))
         metrics = {"loss": loss, **lmetrics, "edq": om.edq, "update_norm": om.update_norm,
                    "imprecision_pct": om.imprecision_pct, "grad_norm": om.grad_norm}
-        return TrainState(params, opt_state, state.grad_err), metrics
+        return TrainState(params, opt_state, grad_err), metrics
 
     return train_step
 

@@ -325,7 +325,30 @@ def test_fused_step_bit_identical_to_jax_eager_bucket_oracle(name):
 
 
 def test_step_metrics_partials_is_not_ported():
-    opt = CollageAdamW(1e-3)
-    params = {"w": torch.zeros(8, dtype=torch.bfloat16)}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        opt.step(params, params, opt.init(params), metrics_partials=True)
+    """Ported now (the name stays): ``step(metrics_partials=True)`` returns
+    the JAX package's per-leaf raw partials (⟨Δθ,Δθ̂⟩, ‖Δθ‖², ‖Δθ̂‖², #lost,
+    ‖g‖²) in leaf order, with the same state; their sum finalizes to the
+    plain step's metrics; the fused shim refuses them as the JAX one does."""
+    jopt, topt = _opts("C")
+    params, st = _np_state("C", 1)
+    jp, js = jax.tree_util.tree_map(jnp.asarray, params), _jax_state(st)
+    tp, ts = _port_params(params), opt_state_from_numpy(**st, device="cpu")
+    g = _grads(11)
+    jp2, js2, jparts = jopt.step(jax.tree_util.tree_map(jnp.asarray, g), jp, js,
+                                 metrics_partials=True)
+    tp2, ts2, tparts = topt.step(_port_params(g), tp, ts, scalars=_jax_scalars(1),
+                                 metrics_partials=True)
+    assert len(tparts) == len(jparts) == 3
+    for tpart, jpart in zip(tparts, jparts):
+        for k in range(5):
+            np.testing.assert_allclose(float(tpart[k]), float(jpart[k]), rtol=1e-5)
+    _assert_same_tree(jp2, jax.tree_util.tree_map(
+        lambda x: x.view(torch.int16).numpy(), tp2), "params")
+    _, _, plain = topt.step(_port_params(g), tp, ts, scalars=_jax_scalars(1))
+    fin = tops.finalize_metrics(tops.sum_partials(tparts), sum(
+        int(np.prod(x.shape)) for x in jax.tree_util.tree_leaves(params)))
+    for k in range(5):
+        np.testing.assert_allclose(float(fin[k]), float(plain[k]), rtol=1e-6)
+    _, fused = _opts("C", fused=True)
+    with pytest.raises(ValueError, match="metrics_partials"):
+        fused.step(_port_params(g), tp, ts, metrics_partials=True)

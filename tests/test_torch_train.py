@@ -18,8 +18,10 @@ package's own initial weights and batches.
   noise stream) by a finite, falling loss.
 * The CLI with ``--device cpu --smoke --steps 3`` runs, bucketed and on
   the tree layout under every strategy; it checkpoints and resumes with
-  ``--ckpt-dir`` (and writes nothing without it), runs ``--remat``, and
-  every flag that is not ported raises.
+  ``--ckpt-dir`` (and writes nothing without it), runs ``--remat``;
+  ``--xla-latency-hiding`` raises (an XLA flag), and the distributed flags
+  run or refuse as the JAX launcher does (their runs under gloo ranks:
+  test_torch_sharded.py).
 """
 
 import dataclasses
@@ -141,19 +143,31 @@ def test_bucketed_c_steps_match_jax_bf16(flash):
 
 
 def test_tree_layout_step_is_not_ported():
-    """What stays unported on the tree layout: the per-leaf metric partials
-    of the pipeline engine and the sharded step. (The tree step itself is
-    ported: see the tree-layout cases below; remat: test_torch_remat.py.)"""
+    """The per-leaf metric partials and the sharded step's ``psum_axis``,
+    once unported here, are ported now (the name stays): partials come one
+    per leaf, ``psum_axis`` takes a ``collectives.Axis`` (a JAX axis name is
+    refused), and one rank's Axis gives the single-program step's bits.
+    (The sharded engine: test_torch_sharded.py.)"""
+    from repro_torch.distributed import collectives as coll
     tm = build_model(get_config("gpt-smoke", smoke=True))
-    opt = CollageAdamW(1e-3)
+    opt = CollageAdamW(1e-3, compute_metrics=True)
     state = ttl.init_state(tm, opt, 0, device="cpu")
     assert isinstance(state.params, dict)
     batch = _to_torch(_batch_np(get_config("gpt-smoke", smoke=True), 16, 2))
     _, _, grads = ttl.make_accum_grads(tm)(state.params, batch)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        opt.step(grads, state.params, state.opt_state, metrics_partials=True)
-    with pytest.raises(NotImplementedError):
+    _, _, parts = opt.step(grads, state.params, state.opt_state, metrics_partials=True)
+    assert len(parts) == len(bucketing.tree_leaves(grads)) and all(len(p) == 5 for p in parts)
+    with pytest.raises(TypeError, match="collectives.Axis"):
         ttl.make_train_step(tm, opt, psum_axis="data")
+    for comp in ("none", "fp8_ef"):
+        s1 = ttl.init_state(tm, opt, 0, comp, device="cpu")
+        s2 = ttl.init_state(tm, opt, 0, comp, device="cpu")
+        a, ma = ttl.make_train_step(tm, opt, grad_compression=comp)(s1, batch)
+        b, mb = ttl.make_train_step(tm, opt, grad_compression=comp,
+                                    psum_axis=coll.Axis())(s2, batch)
+        assert float(ma["loss"]) == float(mb["loss"])
+        for x, y in zip(bucketing.tree_leaves(a.params), bucketing.tree_leaves(b.params)):
+            assert torch.equal(x, y)
     metrics = ttl.make_eval_step(tm)(state.params, batch)
     assert np.isfinite(float(metrics["ce"]))
 
@@ -248,9 +262,28 @@ def test_cli_tree_layout_runs_on_cpu(precision, capsys):
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--zero"], ["--pipeline-stages", "2"],
                                    ["--grad-compression", "fp8_ef"], ["--xla-latency-hiding"]])
-def test_cli_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tlaunch.main(["--smoke", "--device", "cpu", "--steps", "1", *flags])
+def test_cli_unported_flags_raise(flags, capsys):
+    """These flags were refused as unported; now only --xla-latency-hiding
+    is (an XLA flag, refused by design), and the others run or refuse what
+    the JAX launcher refuses (the name stays): --dp 2 outside a torchrun
+    group of 2, --pipeline-stages without --microbatch; --zero alone (one
+    rank, no mesh) and --grad-compression fp8_ef train
+    (test_torch_sharded.py runs the distributed launcher)."""
+    argv = ["--smoke", "--device", "cpu", "--steps", "1", "--seq-len", "32", "--batch", "2",
+            *flags]
+    if flags == ["--xla-latency-hiding"]:
+        with pytest.raises(NotImplementedError, match="XLA"):
+            tlaunch.main(argv)
+    elif flags == ["--dp", "2"]:
+        with pytest.raises(ValueError, match="WORLD_SIZE"):
+            tlaunch.main(argv)
+    elif flags == ["--pipeline-stages", "2"]:
+        with pytest.raises(SystemExit, match="microbatch"):
+            tlaunch.main(argv)
+    else:
+        hist = tlaunch.main(argv + ["--log-every", "1"])
+        assert [h["step"] for h in hist] == [1] and np.isfinite(hist[0]["loss"])
+        assert "done: 1 steps" in capsys.readouterr().out
 
 
 CLI = ["--arch", "gpt-tiny", "--smoke", "--device", "cpu", "--seq-len", "32", "--batch", "4",
