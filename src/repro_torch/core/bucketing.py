@@ -45,7 +45,7 @@ PAD_DEFAULT = SUBLANES * LANES
 MASK32 = 0xFFFFFFFF
 
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
-                torch.float32: "float32"}
+                torch.float32: "float32"}  # f32-ok: dtype names of the layout's JSON
 _NAMED_DTYPES = {v: k for k, v in _DTYPE_NAMES.items()}
 
 
@@ -442,7 +442,9 @@ def sr_noise_bits(idx, seed) -> torch.Tensor:
 def stochastic_round_bits(x32: torch.Tensor, noise16: torch.Tensor) -> torch.Tensor:
     """SR f32 → bf16 grid: add 16 noise bits below the kept mantissa, then
     truncate (E[SR(x)] = x). Returns on-grid f32."""
+    # f32-ok: SR reads the f32 bit pattern (x32 is f32 already)
     bits = x32.to(torch.float32).view(torch.int32).to(torch.int64) & MASK32
     rounded = (bits + noise16) & 0xFFFF0000
+    # f32-ok: the result lies on the bf16 grid, held in f32
     return torch.where(rounded >= 2**31, rounded - 2**32, rounded).to(torch.int32).view(
         torch.float32)

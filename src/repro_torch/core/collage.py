@@ -47,8 +47,17 @@ from repro_torch.core.mcf import Expansion
 from repro_torch.core.precision import PrecisionPolicy, Strategy
 from repro_torch.kernels.edq import edq as kedq
 
-Schedule = Callable[[int], np.float32]
-F32 = torch.float32
+# Leaves past this many elements are updated in flat chunks of it. The
+# strict-FPU update holds ~20 f32 copies of what it updates at once, which
+# on a large leaf (gpt-125m's 38.6 M-element embedding: ~3 GB) outgrows the
+# bytes Collage saves over D; every op is elementwise, so the chunks give
+# the same bits (``tests/test_torch_audit.py``). Each chunk costs its ~150
+# eager launches again: 2^22 chunks slowed gpt-125m's tree C step on the
+# card; at 2^24 its optimizer still peaks below its backward.
+LEAF_CHUNK = 1 << 24
+
+Schedule = Callable[[int], np.float32]  # f32-ok: host schedule values in numpy f32
+F32 = torch.float32  # f32-ok: the strict-FPU update's working dtype
 
 
 @dataclasses.dataclass
@@ -80,8 +89,9 @@ class CollageAdamW:
                  eps: float = 1e-8, weight_decay: float = 0.0,
                  policy: PrecisionPolicy | None = None, compute_metrics: bool = False,
                  use_fused_kernel: bool = False, sr_seed: int = 0):
+        # f32-ok: the host lr in numpy f32, the JAX package's scalar
         self.lr = learning_rate if callable(learning_rate) \
-            else (lambda t: np.float32(learning_rate))
+            else (lambda t: np.float32(learning_rate))  # f32-ok
         self.b1 = float(b1)
         self.b2 = float(b2)
         self.eps = float(eps)
@@ -162,7 +172,7 @@ class CollageAdamW:
 
         outs, parts = [], []
         for args in zip(leaves_g, leaves_p, leaves_m, leaves_v, leaves_d, leaves_w, seeds):
-            *out, upd, eff = self._leaf_step(*args, sc)
+            *out, upd, eff = self._leaf_update(*args, sc)
             outs.append(out)
             if self.compute_metrics:     # taken leaf by leaf: Δθ, Δθ̂ are freed at once
                 parts.append(self._leaf_partials(args[0], upd, eff))
@@ -183,9 +193,27 @@ class CollageAdamW:
         return unflat(new_p), new_state, metrics
 
     # ------------------------------------------------- per-leaf update rules
-    def _leaf_step(self, g, p, m, v, d, w, seed, sc):
+    def _leaf_update(self, g, p, m, v, d, w, seed, sc):
+        """``_leaf_step`` over one leaf, in flat chunks of ``LEAF_CHUNK``
+        elements past that size, written into the leaf's outputs."""
+        n = p.numel()
+        if n <= LEAF_CHUNK:
+            return self._leaf_step(g, p, m, v, d, w, seed, sc)
+        ins = [_map_parts(lambda t: t.reshape(-1), x) for x in (g, p, m, v, d, w)]
+        outs = None
+        for a in range(0, n, LEAF_CHUNK):
+            part = [_map_parts(lambda t: t[a:a + LEAF_CHUNK], x) for x in ins]
+            res = self._leaf_step(*part, seed, sc, offset=a)
+            if outs is None:
+                outs = [_map_parts(lambda t: t.new_empty(n), r) for r in res]
+            for o, r in zip(outs, res):
+                _map_parts(lambda t, u: t[a:a + LEAF_CHUNK].copy_(u), o, r)
+        return [_map_parts(lambda t: t.reshape(p.shape), o) for o in outs]
+
+    def _leaf_step(self, g, p, m, v, d, w, seed, sc, offset=0):
         """One leaf of ``step``: the JAX package's ``_leaf_step``, op for op.
-        Returns (θ, m, v, δθ, master, Δθ in f32, Δθ̂ in f32)."""
+        Returns (θ, m, v, δθ, master, Δθ in f32, Δθ̂ in f32). ``offset``: the
+        flat index of ``p``'s first element in its leaf (SR's noise index)."""
         s = self.policy.strategy
         cdt = self.policy.param_dtype
         lr, bc1, bc2 = sc["lr"], sc["bc1"], sc["bc2"]
@@ -203,13 +231,13 @@ class CollageAdamW:
             upd32 = -lr * (mhat / (mcf.sqrt_rn(vhat) + eps) + self._wd_term(theta_ref))
             if s is Strategy.D_MIXED_MW:
                 w = w + upd32                       # f32 master update
-                new_p32 = f.rn(w)                   # RN onto the bf16 grid
-                eff = new_p32 - f.load(p)
+                new_p = f.round(w)                  # RN onto the bf16 grid
+                eff = f.load(new_p) - f.load(p)
             else:
                 theta32 = f.load(p)
-                new_p32 = f.add(theta32, f.rn(upd32))   # bf16 ⊕ → lost arithmetic
-                eff = new_p32 - theta32
-            return f.store(new_p32), m, v, d, w, upd32, eff
+                new_p = f.round(theta32 + f.rn(upd32))  # bf16 ⊕ → lost arithmetic
+                eff = f.load(new_p) - theta32
+            return new_p, m, v, d, w, upd32, eff
 
         # bf16-storage families (A / B / C / KAHAN / SR): EMAs in the
         # component dtype through the strict FPU
@@ -218,38 +246,41 @@ class CollageAdamW:
         theta32 = f.load(p)
         cb1, c1m = f.rn(_host(self.b1)), f.rn(_host(1 - self.b1))
         cb2, c2m = f.rn(_host(self.b2)), f.rn(_host(1 - self.b2))
-        m32 = f.add(f.mul(cb1, f.load(m)), f.mul(c1m, g32))
-        m = f.store(m32)
+        # each stored value rounded once (``round``), widened where it is read
+        m = f.round(f.mul(cb1, f.load(m)) + f.mul(c1m, g32))
+        m32 = f.load(m)
         g2 = f.mul(g32, g32)
         if s.uses_expansion_second_moment:
             beta2_e = mcf.from_float(self.b2, dtype=cdt)     # host scalars
-            v = mcf.grow(mcf.mul(beta2_e, v), f.store(f.mul(c2m, g2)))   # Alg. 2 line 9
+            v = mcf.grow(mcf.mul(beta2_e, v), f.round(c2m * g2))   # Alg. 2 line 9
             vhat32 = v.value(F32) / bc2
         else:
-            v32 = f.add(f.mul(cb2, f.load(v)), f.mul(c2m, g2))
-            v = f.store(v32)                        # β₂ cast to bf16 (→ 1.0!)
-            vhat32 = v32 / bc2
+            v = f.round(f.mul(cb2, f.load(v)) + f.mul(c2m, g2))  # β₂ cast to bf16 (→ 1.0!)
+            vhat32 = f.load(v) / bc2
         mhat32 = m32 / bc1
         # Δθ formed in f32, rounded once
         upd32 = -lr * (mhat32 / (mcf.sqrt_rn(vhat32) + eps) + self._wd_term(theta32))
-        upd16_32 = f.rn(upd32)
+        upd16 = f.round(upd32)
+        upd16_32 = f.load(upd16)
 
         if s is Strategy.A_BF16:
             base32 = self._maybe_pt_decay(theta32, lr, f)
-            new_p32 = f.add(base32, upd16_32)       # bf16 ⊕: lost arithmetic
-            return f.store(new_p32), m, v, d, w, upd32, new_p32 - theta32
+            new_p = f.round(base32 + upd16_32)       # bf16 ⊕: lost arithmetic
+            return new_p, m, v, d, w, upd32, f.load(new_p) - theta32
         if s is Strategy.SR:
-            idx = torch.arange(p.numel(), dtype=torch.int64, device=p.device).reshape(p.shape)
+            idx = torch.arange(offset, offset + p.numel(), dtype=torch.int64,
+                               device=p.device).reshape(p.shape)
             new_p = mcf.stochastic_round(theta32 + upd32, cdt, bucketing.sr_bits32(idx, seed))
             return new_p, m, v, d, w, upd32, f.load(new_p) - theta32
         if s is Strategy.KAHAN:
             upd_c = f.add(upd16_32, f.load(d))
-            new_p32 = f.add(theta32, upd_c)
-            new_d32 = f.sub(upd_c, f.sub(new_p32, theta32))
-            return f.store(new_p32), m, v, f.store(new_d32), w, upd32, new_p32 - theta32
+            new_p = f.round(theta32 + upd_c)
+            new_p32 = f.load(new_p)
+            new_d = f.round(upd_c - f.sub(new_p32, theta32))
+            return new_p, m, v, new_d, w, upd32, new_p32 - theta32
         # Collage light/plus: Grow Δθ into the (θ, δθ) expansion; Δθ̂ taken
         # componentwise (each difference f32-exact)
-        e = mcf.grow(Expansion(p, d), f.store(upd16_32))
+        e = mcf.grow(Expansion(p, d), upd16)
         eff = (f.load(e.hi) - theta32) + (f.load(e.lo) - f.load(d))
         return e.hi, m, v, e.lo, w, upd32, eff
 
@@ -276,11 +307,21 @@ class CollageAdamW:
         return (p[0], p[1], p[2], p[3], torch.sum(g32 * g32))
 
 
+def _map_parts(fn, x, *rest):
+    """``fn`` over a tensor, over each component of an Expansion (with the
+    matching components of ``rest``); None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, Expansion):
+        return Expansion(fn(x.hi, *(r.hi for r in rest)), fn(x.lo, *(r.lo for r in rest)))
+    return fn(x, *rest)
+
+
 def _host(x) -> torch.Tensor:
     """A host value rounded to f32, as a 0-dim CPU tensor: exact, and an
     operand of CUDA ops by value (a device copy would synchronise the host
     with the card at every call)."""
-    return torch.tensor(float(np.float32(x)), dtype=F32)
+    return torch.tensor(float(np.float32(x)), dtype=F32)  # f32-ok: a host scalar
 
 
 def bucket_state(state: CollageOptState, params: Any, layout: bucketing.BucketLayout,
@@ -385,7 +426,7 @@ def convert_state(state: CollageOptState, params: Any, new_policy: PrecisionPoli
 def cosine_schedule(base_lr: float, warmup: int, total: int, min_ratio: float = 0.1) -> Schedule:
     """CosineAnnealing with linear warmup, evaluated in numpy float32 with
     the JAX package's operation order."""
-    f32 = np.float32
+    f32 = np.float32  # f32-ok: host schedule in numpy f32
 
     def f(t):
         tf = f32(t)

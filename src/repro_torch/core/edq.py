@@ -17,7 +17,7 @@ from repro_torch.core import bucketing
 from repro_torch.core.mcf import Expansion, ulp
 from repro_torch.kernels.edq import edq as kedq
 
-F32 = torch.float32
+F32 = torch.float32  # f32-ok: EDQ metrics are f32 sums
 
 
 def effective_update(theta_old: Any, theta_new: Any) -> Any:

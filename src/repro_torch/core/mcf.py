@@ -34,12 +34,13 @@ import torch
 from repro_torch.core import bucketing
 from repro_torch.core.bucketing import MASK32
 
-F32 = torch.float32
+F32 = torch.float32  # f32-ok: MCF emulation scratch, every op rounded on its own
 
 # significand bits (incl. hidden bit) and minimum normal exponent
+# f32-ok: format tables (this and the next)
 _SIG_BITS = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24,
              torch.float8_e4m3fn: 4, torch.float8_e5m2: 3}
-_EMIN = {torch.bfloat16: -126, torch.float16: -14, torch.float32: -126,
+_EMIN = {torch.bfloat16: -126, torch.float16: -14, torch.float32: -126,  # f32-ok
          torch.float8_e4m3fn: -6, torch.float8_e5m2: -14}
 # (exponent bits, mantissa bits) of the formats rounded by ``_reduce_precision``
 _FP8_FMT = {torch.float8_e4m3fn: (4, 3), torch.float8_e5m2: (5, 2)}
@@ -87,6 +88,13 @@ class StrictFPU:
     def store(self, x32):
         return x32.to(self.dtype)          # exact: x32 is on-grid
 
+    def round(self, x32):
+        """``store(rn(x32))`` in one rounding: the RN value in the storage
+        dtype, with no widening and narrowing again of the rounded value."""
+        if self.dtype in _FP8_FMT:
+            return self.store(self.rn(x32))
+        return x32.to(self.dtype)
+
     def cast(self, x32):
         return self.rn(x32)
 
@@ -108,7 +116,7 @@ def sqrt_rn(x32):
     not (one ulp off on some inputs, where XLA's, numpy's and CUDA's
     ``__fsqrt_rn`` are exact); a square root taken in f64 and rounded once to
     f32 is correctly rounded (53 ≥ 2·24 + 2 bits)."""
-    return torch.sqrt(x32.to(torch.float64)).to(F32)
+    return torch.sqrt(x32.to(torch.float64)).to(F32)  # f32-ok: sqrt in f64, rounded once
 
 
 def fpu(dtype) -> StrictFPU:
@@ -143,22 +151,22 @@ def fast2sum(a, b):
     """Dekker's Fast2Sum (Thm 4.1), |a| ≥ |b|: x = RN(a+b), x + y == a + b."""
     f = fpu(a.dtype)
     a32, b32 = f.load(a), f.load(b)
-    x = f.add(a32, b32)
-    y = f.sub(b32, f.sub(x, a32))
-    return f.store(x), f.store(y)
+    x16 = f.round(a32 + b32)
+    x = f.load(x16)
+    return x16, f.round(b32 - f.sub(x, a32))
 
 
 def two_sum(a, b):
     """Knuth's TwoSum (App. C Alg. 2): branch-free, no magnitude condition."""
     f = fpu(a.dtype)
     a32, b32 = f.load(a), f.load(b)
-    x = f.add(a32, b32)
+    x16 = f.round(a32 + b32)
+    x = f.load(x16)
     b_virtual = f.sub(x, a32)
     a_virtual = f.sub(x, b_virtual)
     b_roundoff = f.sub(b32, b_virtual)
     a_roundoff = f.sub(a32, a_virtual)
-    y = f.add(a_roundoff, b_roundoff)
-    return f.store(x), f.store(y)
+    return x16, f.round(a_roundoff + b_roundoff)
 
 
 def split(a):
@@ -168,9 +176,8 @@ def split(a):
     c = p - (p // 2)
     a32 = f.load(a)
     t = f.mul(torch.tensor(2.0**c + 1.0, dtype=F32), a32)
-    a_hi = f.sub(t, f.sub(t, a32))
-    a_lo = f.sub(a32, a_hi)
-    return f.store(a_hi), f.store(a_lo)
+    a_hi16 = f.round(t - f.sub(t, a32))
+    return a_hi16, f.round(a32 - f.load(a_hi16))
 
 
 def two_prod(a, b):
@@ -179,9 +186,8 @@ def two_prod(a, b):
     f = fpu(a.dtype)
     a32, b32 = f.load(a), f.load(b)
     prod32 = a32 * b32
-    x = f.rn(prod32)
-    e = f.rn(prod32 - x)
-    return f.store(x), f.store(e)
+    x16 = f.round(prod32)
+    return x16, f.round(prod32 - f.load(x16))
 
 
 def grow(e: Expansion, a) -> Expansion:
@@ -194,9 +200,8 @@ def grow(e: Expansion, a) -> Expansion:
     x_virt = f.sub(u, a_virt)
     v = f.add(f.sub(a32, a_virt), f.sub(x32, x_virt))
     t = f.add(y32, v)
-    u2 = f.add(u, t)
-    v2 = f.sub(t, f.sub(u2, u))
-    return Expansion(f.store(u2), f.store(v2))
+    u2_16 = f.round(u + t)
+    return Expansion(u2_16, f.round(t - f.sub(f.load(u2_16), u)))
 
 
 def scaling(e: Expansion, v) -> Expansion:
@@ -205,9 +210,8 @@ def scaling(e: Expansion, v) -> Expansion:
     x, err = two_prod(e.hi, v)
     x32, err32 = f.load(x), f.load(err)
     err32 = f.add(f.mul(f.load(e.lo), f.load(v)), err32)
-    x2 = f.add(x32, err32)
-    e2 = f.sub(err32, f.sub(x2, x32))
-    return Expansion(f.store(x2), f.store(e2))
+    x2_16 = f.round(x32 + err32)
+    return Expansion(x2_16, f.round(err32 - f.sub(f.load(x2_16), x32)))
 
 
 def mul(a: Expansion, b: Expansion) -> Expansion:
@@ -217,9 +221,8 @@ def mul(a: Expansion, b: Expansion) -> Expansion:
     x32, e32 = f.load(x), f.load(e)
     cross = f.add(f.mul(f.load(a.hi), f.load(b.lo)), f.mul(f.load(a.lo), f.load(b.hi)))
     e32 = f.add(e32, cross)
-    x2 = f.add(x32, e32)
-    lo2 = f.sub(e32, f.sub(x2, x32))
-    return Expansion(f.store(x2), f.store(lo2))
+    x2_16 = f.round(x32 + e32)
+    return Expansion(x2_16, f.round(e32 - f.sub(f.load(x2_16), x32)))
 
 
 def add_expansion(a: Expansion, b: Expansion) -> Expansion:
@@ -228,9 +231,8 @@ def add_expansion(a: Expansion, b: Expansion) -> Expansion:
     f = fpu(a.hi.dtype)
     t = f.add(f.load(a.lo), f.load(b.lo))
     t = f.add(f.load(s_lo), t)
-    x = f.add(f.load(s_hi), t)
-    lo = f.sub(t, f.sub(x, f.load(s_hi)))
-    return Expansion(f.store(x), f.store(lo))
+    x16 = f.round(f.load(s_hi) + t)
+    return Expansion(x16, f.round(t - f.sub(f.load(x16), f.load(s_hi))))
 
 
 def from_float(x, dtype=torch.bfloat16, shape: tuple = (), device=None) -> Expansion:
@@ -238,9 +240,9 @@ def from_float(x, dtype=torch.bfloat16, shape: tuple = (), device=None) -> Expan
     (0.999 → (1.0, −0.000999…) in bf16, Paper Table 1)."""
     f = fpu(dtype)
     wide = torch.as_tensor(x, dtype=F32, device=device)
-    hi = f.rn(wide)
-    lo = f.rn(wide - hi)
-    return Expansion(f.store(hi).expand(shape), f.store(lo).expand(shape))
+    hi16 = f.round(wide)
+    lo16 = f.round(wide - f.load(hi16))
+    return Expansion(hi16.expand(shape), lo16.expand(shape))
 
 
 def ulp(x):
@@ -269,8 +271,9 @@ def stochastic_round(x, dtype, noise):
     if dtype == torch.bfloat16:
         return bucketing.stochastic_round_bits(x.to(F32), noise & 0xFFFF).to(torch.bfloat16)
     f = fpu(dtype)
-    lo = f.rn(x)
-    lo = torch.where(lo > x, lo - ulp(f.store(lo)), lo)
+    lo16 = f.round(x)
+    lo = f.load(lo16)
+    lo = torch.where(lo > x, lo - ulp(lo16), lo)
     gap = ulp(f.store(lo))
     frac = (x - lo) / gap
     uniform = ((noise >> 9) | 0x3F800000).to(torch.int32).view(F32) - 1.0

@@ -32,7 +32,7 @@ class Strategy(str, enum.Enum):
     @property
     def optim_dtype(self):
         if self in (Strategy.D_MINUS_MW, Strategy.D_MIXED_MW):
-            return torch.float32
+            return torch.float32  # f32-ok: D⁻ and D keep f32 moments (Paper Table 2)
         return None  # component dtype of the policy
 
     @property
@@ -70,8 +70,8 @@ class PrecisionPolicy:
 
     strategy: Strategy = Strategy.C_COLLAGE_PLUS
     param_dtype: torch.dtype = torch.bfloat16    # stored params / grads / acts
-    accum_dtype: torch.dtype = torch.float32     # GEMM accumulation
-    softmax_dtype: torch.dtype = torch.float32   # attention softmax / norms
+    accum_dtype: torch.dtype = torch.float32     # GEMM accumulation  # f32-ok
+    softmax_dtype: torch.dtype = torch.float32   # attention softmax / norms  # f32-ok
     # "fused": weight decay inside the summed update (Alg. 2 l.12);
     # "pytorch": separate (1-αλ)θ step (App. D Eq. 4, kept for ablation)
     wd_mode: str = "fused"

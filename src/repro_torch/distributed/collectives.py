@@ -86,6 +86,8 @@ def _ordered_sum(parts, dtype: torch.dtype) -> torch.Tensor:
     """Σ parts in list order, each addition rounded to the accumulator of
     ``dtype`` (f16 adds are taken in f32 and rounded: correctly rounded, as
     2·11 + 2 ≤ 24), then rounded once to ``dtype``."""
+    if len(parts) == 1:      # one rank: the sum is the part, in its own dtype
+        return parts[0].clone()
     acc = accumulator(dtype)
     tot = parts[0].to(acc)
     for p in parts[1:]:

@@ -104,8 +104,8 @@ def quantize(g32: torch.Tensor, dtype, scale: Optional[torch.Tensor] = None):
     value it represents). fp8 needs the per-block ``scale`` (nb,)."""
     f = mcf.fpu(dtype)
     if not is_fp8(dtype):
-        q32 = f.rn(g32.to(F32))
-        return f.store(q32), q32
+        payload = f.round(g32.to(F32))
+        return payload, f.load(payload)
     gmax = _FP8_GRID_MAX[dtype]
     blocks, n = _blocked(g32.to(F32))
     q32 = torch.clamp(f.rn(blocks / scale[:, None]), -gmax, gmax)
@@ -301,3 +301,15 @@ def bucket_reducer(err_rows: Optional[Sequence[torch.Tensor]], dtype,
         return m.to(g.dtype)
 
     return reduce_fn, new_rows
+
+
+def store_error_rows(rows: Sequence[torch.Tensor], new_rows: Sequence[torch.Tensor],
+                     donate: bool) -> tuple:
+    """A bucketed state's residual rows after a step: the (1, padded) rows
+    of ``bucket_reducer``'s new residuals, written over ``rows`` when the
+    step is donated (as the update writes the buckets), else new tensors."""
+    if not donate:
+        return tuple(r[None] for r in new_rows)
+    for row, new in zip(rows, new_rows):
+        row[0].copy_(new)
+    return tuple(rows)

@@ -99,36 +99,36 @@ def collage_bucket_update_plain(state: dict, g, lr, bc1, bc2, seed=None, elem_of
             w = state["master"]
             upd32 = -lr_t * (mhat / (mcf.sqrt_rn(vhat) + k["eps"]) + k["wd_upd"] * w)
             w_new = w + upd32
-            new_p32 = _rn(w_new)
+            new["theta"] = w_new.to(torch.bfloat16)
             new["master"] = w_new
         else:
             upd32 = -lr_t * (mhat / (mcf.sqrt_rn(vhat) + k["eps"]) + k["wd_upd"] * theta32)
-            new_p32 = _rn(theta32 + _rn(upd32))
-        eff = new_p32 - theta32
-        new["theta"] = new_p32.to(torch.bfloat16)
+            new["theta"] = (theta32 + _rn(upd32)).to(torch.bfloat16)
+        eff = new["theta"].to(F32) - theta32
         new["m"], new["vhi"] = m_new, v_new
     else:
-        m32 = _rn(_rn(k["cb1"] * m) + _rn(k["c1m"] * g32))
+        # each stored value rounded once to bf16, widened where it is read
+        new["m"] = (_rn(k["cb1"] * m) + _rn(k["c1m"] * g32)).to(torch.bfloat16)
+        m32 = new["m"].to(F32)
         g2 = _rn(g32 * g32)
         if strategy == "C":
             b2e = mcf.from_float(c["b2"], torch.bfloat16, device=g.device)
             v = mcf.grow(mcf.mul(b2e, Expansion(state["vhi"], state["vlo"])),
-                         _rn(k["c2m"] * g2).to(torch.bfloat16))
+                         (k["c2m"] * g2).to(torch.bfloat16))
             new["vhi"], new["vlo"] = v.hi, v.lo
             vhat = v.value(F32) / bc2_t
         else:
-            vhi_new = _rn(_rn(k["cb2"] * vhi) + _rn(k["c2m"] * g2))
-            vhat = vhi_new / bc2_t
-            new["vhi"] = vhi_new.to(torch.bfloat16)
-        new["m"] = m32.to(torch.bfloat16)
+            new["vhi"] = (_rn(k["cb2"] * vhi) + _rn(k["c2m"] * g2)).to(torch.bfloat16)
+            vhat = new["vhi"].to(F32) / bc2_t
         mhat = m32 / bc1_t
         upd32 = -lr_t * (mhat / (mcf.sqrt_rn(vhat) + k["eps"]) + k["wd_upd"] * theta32)
-        upd16 = _rn(upd32)
+        upd_b = upd32.to(torch.bfloat16)
+        upd16 = upd_b.to(F32)
 
         if strategy == "A":
             base = _rn(theta32 * k["factor"]) if pt_decay else theta32
-            new_p32 = _rn(base + upd16)
-            eff = new_p32 - theta32
+            new["theta"] = (base + upd16).to(torch.bfloat16)
+            eff = new["theta"].to(F32) - theta32
         elif strategy == "SR":
             if seed is None:
                 raise ValueError("SR needs a seed")
@@ -138,19 +138,18 @@ def collage_bucket_update_plain(state: dict, g, lr, bc1, bc2, seed=None, elem_of
             noise = bucketing.sr_noise_bits(idx, int(seed))
             new_p32 = bucketing.stochastic_round_bits(theta32 + upd32, noise)
             eff = new_p32 - theta32
+            new["theta"] = new_p32.to(torch.bfloat16)
         elif strategy == "KAHAN":
             cc = state["delta"].to(F32)
             upd_c = _rn(upd16 + cc)
-            new_p32 = _rn(theta32 + upd_c)
-            c_new = _rn(upd_c - _rn(new_p32 - theta32))
+            new["theta"] = (theta32 + upd_c).to(torch.bfloat16)
+            new_p32 = new["theta"].to(F32)
+            new["delta"] = (upd_c - _rn(new_p32 - theta32)).to(torch.bfloat16)
             eff = new_p32 - theta32
-            new["delta"] = c_new.to(torch.bfloat16)
         else:  # B / C: Grow Δθ into the (θ, δθ) expansion
-            e = mcf.grow(Expansion(state["theta"], state["delta"]), upd16.to(torch.bfloat16))
+            e = mcf.grow(Expansion(state["theta"], state["delta"]), upd_b)
             eff = (e.hi.to(F32) - theta32) + (e.lo.to(F32) - state["delta"].to(F32))
-            new_p32 = e.hi.to(F32)
-            new["delta"] = e.lo
-        new["theta"] = new_p32.to(torch.bfloat16)
+            new["theta"], new["delta"] = e.hi, e.lo
 
     partials = None
     if compute_metrics and return_tiles:

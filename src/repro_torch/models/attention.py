@@ -78,7 +78,7 @@ def _gqa_out(probs, v, cfg, dtype):
     dh = v.shape[-1]
     pv = probs.to(dtype).reshape(B * hk, g * L, S)
     vv = v.permute(0, 2, 1, 3).reshape(B * hk, S, dh)
-    out = matmul_f32(pv, vv).to(dtype).reshape(B, hk, g, L, dh)
+    out = matmul_f32(pv, vv, out_dtype=dtype).reshape(B, hk, g, L, dh)
     return out.permute(0, 3, 1, 2, 4).reshape(B, L, hk * g * dh)
 
 
@@ -144,7 +144,7 @@ def banded_attention(p, x, cfg, *, window, positions=None):
     probs = torch.softmax(scores, dim=-1)
     pv = probs.to(x.dtype).reshape(B * nb * hk, g * W, 2 * W)
     vv = v2.permute(0, 1, 3, 2, 4).reshape(B * nb * hk, 2 * W, dh)
-    out = matmul_f32(pv, vv).to(x.dtype).reshape(B, nb, hk, g, W, dh)
+    out = matmul_f32(pv, vv, out_dtype=x.dtype).reshape(B, nb, hk, g, W, dh)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, L, h * dh)
     return matmul(out, p["wo"])
 
@@ -170,9 +170,10 @@ def flash_attention(p, x, cfg, *, causal=True, window=0, positions=None, q_chunk
     for qi in range(L // q_chunk):
         qb = q[:, qi * q_chunk:(qi + 1) * q_chunk].reshape(B, q_chunk, hk, g, dh)
         qb = qb.permute(0, 2, 3, 1, 4).reshape(B * hk, g * q_chunk, dh)
+        # f32-ok: the blocked path's online-softmax row max, sum and output
         m = torch.full((B, hk, g, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, hk, g, q_chunk), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, hk, g, q_chunk, dh), dtype=torch.float32, device=dev)
+        l = torch.zeros((B, hk, g, q_chunk), dtype=torch.float32, device=dev)  # f32-ok
+        acc = torch.zeros((B, hk, g, q_chunk, dh), dtype=torch.float32, device=dev)  # f32-ok
         qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
         for kj in range(L // kv_chunk):
             sl = slice(kj * kv_chunk, (kj + 1) * kv_chunk)

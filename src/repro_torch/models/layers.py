@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-ACC = torch.float32
+ACC = torch.float32  # f32-ok: accumulation dtype (GEMM outputs, norms, softmax)
 
 
 def chunk_pad(length: int, chunk: int) -> tuple[int, int]:
@@ -30,6 +30,7 @@ def dense_init(gen, shape, dtype, scale=None):
     scale = scale if scale is not None else shape[-2] ** -0.5
     if gen.device.type == "meta":                    # shapes only
         return torch.empty(shape, dtype=dtype, device="meta")
+    # f32-ok: init draws in f32, then casts to the parameter dtype
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
     return (w * scale).to(dtype)
 
@@ -54,12 +55,15 @@ class _MatmulF32(torch.autograd.Function):
     of the f32 cotangent g with the other operand, f32 out, converted to
     the operand's dtype. g is rounded to the operands' dtype for those two
     products (a TPU's default precision does the same to an f32 operand of
-    a bf16 product)."""
+    a bf16 product). With ``out_dtype`` the f32 result is rounded once to
+    it, and the cotangent arrives in that dtype: not widened to f32 by the
+    cast's backward only to be rounded back here."""
 
     @staticmethod
-    def forward(ctx, a, b):
+    def forward(ctx, a, b, out_dtype):
         ctx.save_for_backward(a, b)
-        return _mm_f32(a, b)
+        out = _mm_f32(a, b)
+        return out if out_dtype is None else out.to(out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -67,7 +71,7 @@ class _MatmulF32(torch.autograd.Function):
         g = g.to(a.dtype)
         da = _mm_f32(g, b.transpose(-1, -2)).to(a.dtype) if ctx.needs_input_grad[0] else None
         db = _mm_f32(a.transpose(-1, -2), g).to(b.dtype) if ctx.needs_input_grad[1] else None
-        return da, db
+        return da, db, None
 
 
 def _mm_f32(a, b):
@@ -75,16 +79,18 @@ def _mm_f32(a, b):
     return mm(a, b, out_dtype=ACC)
 
 
-def matmul_f32(a, b):
+def matmul_f32(a, b, out_dtype=None):
     """``a @ b`` (2-D, or 3-D batched) with an f32 result: the JAX
-    package's ``preferred_element_type=f32`` product. On the card a bf16
+    package's ``preferred_element_type=f32`` product, rounded once to
+    ``out_dtype`` if one is given (its ``.astype``). On the card a bf16
     pair runs as one bf16 product with f32 output (``_MatmulF32``). The
     CPU has no ``mm.dtype`` kernel, so there (and for f32 operands) both
     operands are upcast and multiplied in f32: the same products, summed
     in another order."""
     if a.is_cuda and a.dtype != ACC:
-        return _MatmulF32.apply(a, b)
-    return torch.matmul(a.to(ACC), b.to(ACC))
+        return _MatmulF32.apply(a, b, out_dtype)
+    out = torch.matmul(a.to(ACC), b.to(ACC))
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def rms_norm(x, scale, eps):

@@ -148,7 +148,7 @@ def _moe_dispatch(p, xt, cfg):
     g = matmul_f32(xe, p["we_gate"])
     u = matmul_f32(xe, p["we_up"])
     h = (F.silu(g) * u).to(xt.dtype)
-    ye = matmul_f32(h, p["we_down"]).to(xt.dtype)              # (E, G·C, D)
+    ye = matmul_f32(h, p["we_down"], out_dtype=xt.dtype)       # (E, G·C, D)
     ye = ye.reshape(E, G, C, D).transpose(0, 1).reshape(G * E * C, D)
 
     # a dropped (t, k) reads some real row times its zero gate: spread over

@@ -29,6 +29,7 @@ def _uniform(gen, shape, dtype):
     """U[0, 1) drawn in f32 on ``gen``'s device, cast to ``dtype``."""
     if gen.device.type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
+    # f32-ok: init draws in f32, then casts to the parameter dtype
     return torch.rand(shape, generator=gen, dtype=torch.float32, device=gen.device).to(dtype)
 
 

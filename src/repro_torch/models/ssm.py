@@ -29,6 +29,7 @@ def mamba_init(gen, cfg, dtype, repeats):
     n = cfg.ssm_d_state
     dt_rank = max(d // 16, 1)
     dev = gen.device
+    # f32-ok: Mamba's A_log init, cast to the parameter dtype below
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=dev))
     return {
         "in_proj": dense_init(gen, (R, d, 2 * d_in), dtype),

@@ -355,7 +355,7 @@ def _mamba_state_after(p, x, cfg):
     # conv tail: last K-1 pre-activation inputs (zero-extended left for
     # prompts shorter than the conv receptive field); the reference takes
     # this product with preferred_element_type=f32, then rounds
-    xz = matmul_f32(x.reshape(B * L, D), p["in_proj"]).to(x.dtype).reshape(B, L, -1)
+    xz = matmul_f32(x.reshape(B * L, D), p["in_proj"], out_dtype=x.dtype).reshape(B, L, -1)
     conv = xz[..., :d_in][:, -(K - 1):]
     if L < K - 1:
         conv = torch.cat([torch.zeros((B, K - 1 - L, d_in), dtype=conv.dtype,

@@ -458,7 +458,8 @@ def make_sharded_train_step(model: Model, opt: CollageAdamW, mesh: Mesh, *,
                     grads.data, params, opt_state, elem_offsets=offs, reduce_fn=reduce_fn,
                     donate=donate)
             if use_ef:
-                new_opt = dataclasses.replace(new_opt, grad_err=tuple(r[None] for r in new_rows))
+                new_opt = dataclasses.replace(new_opt, grad_err=compression.store_error_rows(
+                    opt_state.grad_err, new_rows, donate))
         else:
             err_plain = bucketing.tree_map(lambda e: e[0], grad_err) if use_ef else None
             grads, new_err = compression.reduce_tree(grads, err_plain, dtype, axis, n_dp)

@@ -192,6 +192,7 @@ def make_accum_grads(model: Model, *, microbatch: int = 0, remat: str = "none",
         for i in range(n):
             loss, m, grads = grads_of(params, {k: v[i] for k, v in chunks.items()})
             leaves = _grad_leaves(grads)
+            # f32-ok: microbatch gradients accumulate in f32 (this and the next line)
             acc = [g.to(torch.float32) for g in leaves] if acc is None \
                 else [a + g.to(torch.float32) for a, g in zip(acc, leaves)]
             loss_sum, ce_sum, aux_sum = loss_sum + loss, ce_sum + m["ce"], aux_sum + m["aux"]
@@ -262,7 +263,8 @@ def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
         params, opt_state, om = _apply_opt(opt, grads, state.params, opt_state, donate,
                                            reduce_fn)
         if reduce_fn is not None and use_ef:
-            opt_state = dataclasses.replace(opt_state, grad_err=tuple(r[None] for r in new_rows))
+            opt_state = dataclasses.replace(opt_state, grad_err=compression.store_error_rows(
+                state.opt_state.grad_err, new_rows, donate))
         metrics = {"loss": loss, **lmetrics, "edq": om.edq, "update_norm": om.update_norm,
                    "imprecision_pct": om.imprecision_pct, "grad_norm": om.grad_norm}
         return TrainState(params, opt_state, grad_err), metrics

@@ -80,3 +80,27 @@ def test_port_serves_with_jax_unimportable():
                          timeout=300)
     assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr}"
     assert "PORT_WITHOUT_JAX_OK" in out.stdout
+
+
+def test_audit_runs_with_jax_unimportable(tmp_path):
+    """The audit (``repro_torch.analysis``, ``launch.precision_audit``)
+    traces and audits a cell with JAX made unimportable."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch import analysis
+        from repro_torch.launch import precision_audit as pa
+        cell = pa.run_one("gpt-tiny", "C", "zero", pa.MODES["zero"], "cpu")
+        assert cell["ok"] == {{"no_master_copy": True, "all_donations_realized": True}}, cell
+        assert cell["n_donated"] == 6 and cell["double_round_chains"] == 0, cell
+        assert analysis.lint_paths(repo_root={str(REPO)!r}) == []
+        print("AUDIT_WITHOUT_JAX_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr}"
+    assert "AUDIT_WITHOUT_JAX_OK" in out.stdout
