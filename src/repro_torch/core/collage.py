@@ -56,6 +56,10 @@ from repro_torch.kernels.edq import edq as kedq
 # card; at 2^24 its optimizer still peaks below its backward.
 LEAF_CHUNK = 1 << 24
 
+SR_FUSED_BLOCKS = ("SR through the fused shim on blocks of leaves: the kernel indexes its noise "
+                   "by a bucket offset, not by a block's place in its leaf (ROADMAP.md Queue 1 "
+                   "item 7b)")
+
 Schedule = Callable[[int], np.float32]  # f32-ok: host schedule values in numpy f32
 F32 = torch.float32  # f32-ok: the strict-FPU update's working dtype
 
@@ -138,14 +142,18 @@ class CollageAdamW:
                                   reduce_fn=reduce_fn, donate=donate)
 
     def step(self, grads, params, state: CollageOptState, *, metrics_partials: bool = False,
-             scalars=None):
+             scalars=None, blocks=None):
         """One tree-layout step → ``(new_params, new_state, StepMetrics)``.
         ``scalars``: (lr, bc1, bc2) to use in place of the host-computed ones
         (parity tests feed the JAX package's). ``metrics_partials``: in
         place of the StepMetrics, the per-leaf raw partials (⟨Δθ,Δθ̂⟩,
         ‖Δθ‖², ‖Δθ̂‖², #lost, ‖g‖²), a list in leaf order (zeros without
         ``compute_metrics``): plain sums, so a caller may add those of
-        several leaves or shards and finalize once."""
+        several leaves or shards and finalize once. ``blocks``: per leaf
+        (leaf order), None or the (whole leaf's shape, block start per dim)
+        of a block the leaf is (a grid rank's): SR then draws each
+        element's noise at its index in the whole leaf, so the block's
+        update is the one-rank update's, bit for bit."""
         from repro_torch.kernels.collage_update import ops as kops
 
         t = state.step + 1
@@ -154,6 +162,8 @@ class CollageAdamW:
             if metrics_partials:
                 raise ValueError("metrics_partials is a tree-layout feature (per-leaf "
                                  "partials); the fused shim reduces per bucket")
+            if blocks is not None and self.policy.strategy is Strategy.SR and any(blocks):
+                raise ValueError(SR_FUSED_BLOCKS)
             return kops.fused_step(self, grads, params, state, scalars=(lr, bc1, bc2))
 
         s = self.policy.strategy
@@ -167,12 +177,14 @@ class CollageAdamW:
         leaves_w = bucketing.tree_leaves(state.master) if state.master is not None else [None] * n
         seeds = [bucketing.fold_seed(state.rng, t, i) if s is Strategy.SR else None
                  for i in range(n)]
+        blocks = [None] * n if blocks is None else list(blocks)
         dev = leaves_g[0].device
         sc = {"lr": _host(lr), "bc1": _host(bc1), "bc2": _host(bc2)}
 
         outs, parts = [], []
-        for args in zip(leaves_g, leaves_p, leaves_m, leaves_v, leaves_d, leaves_w, seeds):
-            *out, upd, eff = self._leaf_update(*args, sc)
+        for *args, block in zip(leaves_g, leaves_p, leaves_m, leaves_v, leaves_d, leaves_w, seeds,
+                                blocks):
+            *out, upd, eff = self._leaf_update(*args, sc, block=block)
             outs.append(out)
             if self.compute_metrics:     # taken leaf by leaf: Δθ, Δθ̂ are freed at once
                 parts.append(self._leaf_partials(args[0], upd, eff))
@@ -193,27 +205,32 @@ class CollageAdamW:
         return unflat(new_p), new_state, metrics
 
     # ------------------------------------------------- per-leaf update rules
-    def _leaf_update(self, g, p, m, v, d, w, seed, sc):
+    def _leaf_update(self, g, p, m, v, d, w, seed, sc, block=None):
         """``_leaf_step`` over one leaf, in flat chunks of ``LEAF_CHUNK``
-        elements past that size, written into the leaf's outputs."""
+        elements past that size, written into the leaf's outputs.
+        ``block``: (whole shape, starts) when ``p`` is a block of a leaf."""
         n = p.numel()
+        if block is not None:
+            block = (tuple(block[0]), tuple(block[1]), tuple(p.shape))
         if n <= LEAF_CHUNK:
-            return self._leaf_step(g, p, m, v, d, w, seed, sc)
+            return self._leaf_step(g, p, m, v, d, w, seed, sc, block=block)
         ins = [_map_parts(lambda t: t.reshape(-1), x) for x in (g, p, m, v, d, w)]
         outs = None
         for a in range(0, n, LEAF_CHUNK):
             part = [_map_parts(lambda t: t[a:a + LEAF_CHUNK], x) for x in ins]
-            res = self._leaf_step(*part, seed, sc, offset=a)
+            res = self._leaf_step(*part, seed, sc, offset=a, block=block)
             if outs is None:
                 outs = [_map_parts(lambda t: t.new_empty(n), r) for r in res]
             for o, r in zip(outs, res):
                 _map_parts(lambda t, u: t[a:a + LEAF_CHUNK].copy_(u), o, r)
         return [_map_parts(lambda t: t.reshape(p.shape), o) for o in outs]
 
-    def _leaf_step(self, g, p, m, v, d, w, seed, sc, offset=0):
+    def _leaf_step(self, g, p, m, v, d, w, seed, sc, offset=0, block=None):
         """One leaf of ``step``: the JAX package's ``_leaf_step``, op for op.
         Returns (θ, m, v, δθ, master, Δθ in f32, Δθ̂ in f32). ``offset``: the
-        flat index of ``p``'s first element in its leaf (SR's noise index)."""
+        flat index of ``p``'s first element in its leaf (SR's noise index);
+        with ``block`` (whole shape, starts, block shape) in the block, and
+        the noise index is the element's in the whole leaf."""
         s = self.policy.strategy
         cdt = self.policy.param_dtype
         lr, bc1, bc2 = sc["lr"], sc["bc1"], sc["bc2"]
@@ -268,8 +285,10 @@ class CollageAdamW:
             new_p = f.round(base32 + upd16_32)       # bf16 ⊕: lost arithmetic
             return new_p, m, v, d, w, upd32, f.load(new_p) - theta32
         if s is Strategy.SR:
-            idx = torch.arange(offset, offset + p.numel(), dtype=torch.int64,
-                               device=p.device).reshape(p.shape)
+            idx = torch.arange(offset, offset + p.numel(), dtype=torch.int64, device=p.device)
+            if block is not None:
+                idx = block_index(idx, *block)
+            idx = idx.reshape(p.shape)
             new_p = mcf.stochastic_round(theta32 + upd32, cdt, bucketing.sr_bits32(idx, seed))
             return new_p, m, v, d, w, upd32, f.load(new_p) - theta32
         if s is Strategy.KAHAN:
@@ -305,6 +324,18 @@ class CollageAdamW:
         p = kedq.edq_partials(u.reshape(-1), e.reshape(-1))
         g32 = g.to(F32)
         return (p[0], p[1], p[2], p[3], torch.sum(g32 * g32))
+
+
+def block_index(flat, whole_shape, starts, block_shape) -> torch.Tensor:
+    """Indices in the whole leaf (row-major) of a block's elements, given
+    their flat indices ``flat`` in the block."""
+    out = torch.zeros_like(flat)
+    stride = 1
+    for d in reversed(range(len(block_shape))):
+        out += (flat % block_shape[d] + starts[d]) * stride
+        flat = flat // block_shape[d]
+        stride *= whole_shape[d]
+    return out
 
 
 def _map_parts(fn, x, *rest):

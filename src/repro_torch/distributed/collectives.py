@@ -20,6 +20,22 @@ the reference's (pipe, data) mesh, row-major.
 
 Every collective is recorded in ``CENSUS`` (op, role, wire dtype, numel,
 the bytes this rank sends): the tests and ``chip_smoke.py`` read it.
+Roles of the grid (``distributed.sharding``): ``fsdp_gather`` and
+``fsdp_scatter`` (a weight's just-in-time gather over dp and its
+gradient's reduce-scatter), ``tp_reduce`` (a row-parallel output's sum over "model",
+and the sum of a column-parallel input's gradient), ``vocab_reduce`` (the
+vocab-parallel embedding, loss and argmax), ``cp_combine`` (the
+context-parallel decode's log-sum-exp combine over "data"), ``sp_scatter``
+and ``sp_gather`` (sequence parallelism's reduce-scatter and all-gather
+over the sequence), ``grad`` (a dp-replicated leaf's gradient sum).
+
+Along a tensor dim (``all_gather_dim``, ``psum_scatter_dim``, ``reduce_to``,
+``copy_to``, ``gather_rep_dim``, ``split_dim``) each collective is an
+autograd Function whose backward is its conjugate: gather ↔ reduce-scatter,
+psum ↔ identity, slice ↔ gather.
+
+Several ranks may share one card, where NCCL refuses them: then they meet
+in a ``gloo`` group over CUDA tensors, which takes every collective here.
 """
 
 from __future__ import annotations
@@ -132,12 +148,18 @@ def psum_scatter(x: torch.Tensor, axis: Optional[Axis], role: str = "grad") -> t
     n = axis.size
     if x.dim() != 1 or x.shape[0] % n:
         raise ValueError(f"psum_scatter: 1-D length divisible by {n}, got {tuple(x.shape)}")
-    w = _wire(x.contiguous())
+    out = _all_to_all(_wire(x.contiguous()), axis, role)
+    parts = list(_unwire(out, x.dtype).reshape(n, -1))
+    return _ordered_sum(parts, x.dtype)
+
+
+def _all_to_all(w: torch.Tensor, axis: Axis, role: str) -> torch.Tensor:
+    """Equal blocks of dim 0 to the ranks in order; block j of the result
+    came from rank j."""
     _record("all_to_all", role, w)
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=axis.group)
-    parts = list(_unwire(out, x.dtype).reshape(n, -1))
-    return _ordered_sum(parts, x.dtype)
+    return out
 
 
 def pmax(x: torch.Tensor, axis: Optional[Axis], role: str = "amax") -> torch.Tensor:
@@ -162,3 +184,138 @@ def pmean_scalar(x: torch.Tensor, axis: Optional[Axis], role: str = "metric") ->
     if axis is None or not axis.distributed:
         return x
     return psum(x.to(F32), axis, role=role) / axis.size
+
+
+# ------------------------------------------- along a tensor dim, with autograd
+def _local(axis: Optional[Axis]) -> bool:
+    return axis is None or not axis.distributed
+
+
+def _gather_dim(x: torch.Tensor, axis: Axis, dim: int, role: str) -> torch.Tensor:
+    return torch.cat(_gather(x, axis, role), dim=dim)
+
+
+def _scatter_sum_dim(x: torch.Tensor, axis: Axis, dim: int, role: str) -> torch.Tensor:
+    """This rank's block along ``dim`` of Σ_ranks x: an all-to-all of the
+    blocks, then the ordered sum in the reference's accumulator."""
+    n = axis.size
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter_dim: dim {dim} of {tuple(x.shape)} over {n} ranks")
+    blocks = torch.stack(torch.chunk(x, n, dim=dim))              # (n, ..., k, ...)
+    out = _unwire(_all_to_all(_wire(blocks.contiguous()), axis, role), x.dtype)
+    return _ordered_sum(list(out), x.dtype)
+
+
+def _block_of(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    k = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.rank * k, k).contiguous()
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, role, back_role):
+        ctx.axis, ctx.dim, ctx.role = axis, dim, back_role
+        return _gather_dim(x, axis, dim, role)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum_dim(g.contiguous(), ctx.axis, ctx.dim, ctx.role), None, None, None, None
+
+
+class _PsumScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, role, back_role):
+        ctx.axis, ctx.dim, ctx.role = axis, dim, back_role
+        return _scatter_sum_dim(x.contiguous(), axis, dim, role)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.axis, ctx.dim, ctx.role), None, None, None, None
+
+
+class _ReduceTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, role):
+        return psum(x, axis, role=role)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, role):
+        ctx.axis, ctx.role = axis, role
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.contiguous(), ctx.axis, role=ctx.role), None, None
+
+
+class _GatherRepDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, role):
+        ctx.axis, ctx.dim = axis, dim
+        return _gather_dim(x, axis, dim, role)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_of(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, role):
+        ctx.axis, ctx.dim, ctx.role = axis, dim, role
+        return _block_of(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g.contiguous(), ctx.axis, ctx.dim, ctx.role), None, None, None
+
+
+def all_gather_dim(x: torch.Tensor, axis: Optional[Axis], dim: int, role: str = "fsdp_gather",
+                   back_role: str = "fsdp_scatter") -> torch.Tensor:
+    """The ranks' blocks of ``x`` concatenated along ``dim`` (FSDP's
+    just-in-time gather); backward: the reduce-scatter of the gradient."""
+    return x if _local(axis) else _AllGatherDim.apply(x, axis, dim, role, back_role)
+
+
+def psum_scatter_dim(x: torch.Tensor, axis: Optional[Axis], dim: int, role: str = "sp_scatter",
+                     back_role: str = "sp_gather") -> torch.Tensor:
+    """This rank's block along ``dim`` of Σ_ranks x (bf16 parts summed in
+    f32 in rank order, rounded once); backward: the all-gather."""
+    return x if _local(axis) else _PsumScatterDim.apply(x, axis, dim, role, back_role)
+
+
+def reduce_to(x: torch.Tensor, axis: Optional[Axis], role: str = "tp_reduce") -> torch.Tensor:
+    """Σ over the ranks (a row-parallel output); backward: the identity."""
+    return x if _local(axis) else _ReduceTo.apply(x, axis, role)
+
+
+def copy_to(x: torch.Tensor, axis: Optional[Axis], role: str = "tp_reduce") -> torch.Tensor:
+    """The identity (a column-parallel input, a weight every rank applies to
+    its own part); backward: Σ of the gradient over the ranks."""
+    return x if _local(axis) else _CopyTo.apply(x, axis, role)
+
+
+def gather_rep_dim(x: torch.Tensor, axis: Optional[Axis], dim: int,
+                   role: str = "sp_gather") -> torch.Tensor:
+    """The all-gather along ``dim`` ahead of a computation every rank
+    repeats whole; backward: this rank's block of its own gradient (every
+    rank holds the same one)."""
+    return x if _local(axis) else _GatherRepDim.apply(x, axis, dim, role)
+
+
+def split_dim(x: torch.Tensor, axis: Optional[Axis], dim: int,
+              role: str = "sp_gather") -> torch.Tensor:
+    """This rank's block along ``dim`` of a tensor every rank holds whole;
+    backward: the all-gather of the blocks' gradients."""
+    return x if _local(axis) else _SplitDim.apply(x, axis, dim, role)
+
+
+def gather_dim(x: torch.Tensor, axis: Optional[Axis], dim: int, role: str = "gather") -> torch.Tensor:
+    """All-gather along ``dim`` without autograd (assembling results)."""
+    return x if _local(axis) else _gather_dim(x, axis, dim, role)

@@ -29,8 +29,12 @@ Schedules:
   * ``interleaved`` — V virtual chunks per stage, chunk c on stage c mod S
     (round-robin), Megatron ordering; requires M % S == 0.
 
-Not ported yet: ``stage_schedule`` and ``pipeline_apply`` (the legacy
-standalone GPipe forward scan).
+The legacy standalone GPipe forward, ``stage_schedule`` and
+``pipeline_apply``, runs its stages on devices of one rank too: tick t runs
+stage s on microbatch t − s, its input the output stage s−1 made at tick
+t−1. Autograd runs through it whole, so its gradient is the sequential
+stack's; the reference's shard_map version transposes its closing psums to
+psums and delivers the S-fold gradient its docstring warns of.
 """
 from __future__ import annotations
 
@@ -451,3 +455,52 @@ def split_virtual(stacked_params, n_stages: int, n_virtual: int):
         assert L % C == 0, (L, n_stages, n_virtual)
         return x.reshape(n_virtual, n_stages, L // C, *x.shape[1:])
     return bucketing.tree_map(f, stacked_params)
+
+
+# ==========================================================================
+# legacy standalone GPipe (forward scan; differentiable end to end)
+# ==========================================================================
+
+def stage_schedule(body_fn: Callable, stage_params: Sequence, xs: torch.Tensor, *,
+                   n_stages: int, with_aux: bool = False, devices: Sequence = ()):
+    """GPipe forward over ``n_stages`` stages of this rank: ``stage_params[s]``
+    is stage s's params (on ``devices[s]``, default ``xs``' device), ``xs``
+    (n_micro, ...) the microbatches. Bubble ticks run nothing (the
+    reference computes them masked and discards them). Returns the last
+    stage's outputs (n_micro, ...) and, ``with_aux``, Σ of the stages' aux."""
+    S, M = n_stages, xs.shape[0]
+    devs = list(devices) or [xs.device] * S
+    prev: list = [None] * S
+    outs: list = [None] * M
+    aux = torch.zeros((), dtype=F32, device=xs.device)
+    for t in range(M + S - 1):
+        cur: list = [None] * S
+        for s in range(S):
+            m = t - s
+            if not 0 <= m < M:
+                continue
+            inp = (xs[m] if s == 0 else prev[s - 1]).to(devs[s])
+            res = body_fn(stage_params[s], inp)
+            out, a = res if with_aux else (res, None)
+            cur[s] = out
+            if a is not None:
+                aux = aux + a.to(device=xs.device, dtype=F32)
+            if s == S - 1:
+                outs[m] = out.to(xs.device)
+        prev = cur
+    out = torch.stack(outs)
+    return (out, aux) if with_aux else out
+
+
+def pipeline_apply(body_fn: Callable, staged_params, x_micro: torch.Tensor, *,
+                   devices: Sequence = ()):
+    """Run ``x_micro`` (n_micro, mb, ...) through the S-stage pipeline:
+    ``staged_params`` leaves carry a leading stage dim (``split_stages``),
+    ``body_fn(stage_params, x)`` applies one stage's layer chunk. Returns
+    (n_micro, mb, ...)."""
+    S = bucketing.tree_leaves(staged_params)[0].shape[0]
+    devs = list(devices) or [x_micro.device] * S
+    per_stage = [bucketing.tree_map(lambda p, s=s: p[s].to(devs[s]), staged_params)
+                 for s in range(S)]
+    return stage_schedule(body_fn, per_stage, x_micro, n_stages=S, devices=devs)
+

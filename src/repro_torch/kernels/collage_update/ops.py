@@ -152,13 +152,15 @@ def bucketed_step(opt, grads, bparams: bucketing.BucketedParams,
     return bucketing.BucketedParams(tuple(new["theta"]), layout), new_state, metrics
 
 
-def fused_step(opt, grads, params, state, *, scalars=None):
+def fused_step(opt, grads, params, state, *, scalars=None, metrics_partials=False):
     """``CollageAdamW.step`` through the bucket engine, for tree-shaped state
     (``use_fused_kernel``): ``bucket_state`` → ``bucketed_step`` (one
     ``collage_bucket_update`` per bucket) → ``unbucket_state``. Re-buckets
     every call, the cost ``bucketed_step`` on persistent buckets removes. The
     SR seed of bucket i at step t is ``fold_seed(state.rng, t, i)``, as in
-    ``bucketed_step``, so both give the same bits from the same state."""
+    ``bucketed_step``, so both give the same bits from the same state.
+    ``metrics_partials``: the summed raw partials in place of the
+    StepMetrics."""
     from repro_torch.core.collage import bucket_state, unbucket_state
 
     bp = opt.policy.bucketing
@@ -167,6 +169,7 @@ def fused_step(opt, grads, params, state, *, scalars=None):
     bparams, bstate = bucket_state(state, params, layout, opt.policy,
                                    sr_seed=state.rng if state.rng is not None else 0)
     gbuckets = bucketing.bucket_tree(grads, layout)
-    bparams, bstate, metrics = bucketed_step(opt, gbuckets, bparams, bstate, scalars=scalars)
+    bparams, bstate, metrics = bucketed_step(opt, gbuckets, bparams, bstate, scalars=scalars,
+                                             metrics_partials=metrics_partials)
     new_params, new_state = unbucket_state(bparams, bstate, opt.policy)
     return new_params, new_state, metrics

@@ -15,15 +15,27 @@ package's blocked online softmax, in torch) under "flash".
 memory) and no rotary embedding at prefill, and ``cross_decode`` against
 the memory's K/V, computed once at prefill by ``cross_kv``, at decode and
 verify.
+
+Head counts come from the weights, so on a grid of ranks the functions run
+on this rank's heads: ``wq``/``wk``/``wv`` are column blocks (whole heads),
+``wo`` a row block whose partial output the sublayer sums over "model".
+Where the KV heads do not divide "model", every rank holds them all (a
+projection gathered over "model", ``distributed.sharding.materialize``,
+and a cache replicated on heads) and picks the KV head of each of its
+query heads (``_local_kv``: query head h reads KV head h // (H/Hkv)).
+With context parallelism the decode cache's length is split over "data":
+each rank scores its span and the spans are combined by the log-sum-exp
+rule (``_cp_attend``); only the rank owning ``pos`` writes the new K/V.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.flash_attention import flash_attention as kflash
-from repro_torch.models.layers import (dense_init, matmul, matmul_f32, rms_norm, rope_apply,
-                                      rope_freqs)
+from repro_torch.models.layers import (dense_init, matmul, matmul_f32, out_proj, rms_norm,
+                                      rope_apply, rope_freqs, sharder)
 
 NEG_INF = -1e30
 
@@ -47,7 +59,8 @@ def _positions(B, L, device):
 
 def _qkv(p, x, x_kv, cfg, positions, kv_positions):
     B, L, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    dh = cfg.head_dim_
+    h, hk = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     q = matmul(x, p["wq"]).reshape(B, L, h, dh)
     k = matmul(x_kv, p["wk"]).reshape(B, x_kv.shape[1], hk, dh)
     v = matmul(x_kv, p["wv"]).reshape(B, x_kv.shape[1], hk, dh)
@@ -62,11 +75,24 @@ def _qkv(p, x, x_kv, cfg, positions, kv_positions):
     return q, k, v
 
 
+def _local_kv(q, k, v, cfg):
+    """K/V heads grouped for this rank's query heads: as they are where
+    they group evenly (one rank, or whole KV heads a rank), else the KV
+    head of each query head, picked from all of them."""
+    h, hk = q.shape[2], k.shape[2]
+    G = cfg.n_heads // cfg.n_kv_heads
+    if hk * G == h:
+        return k, v
+    r = sharder().model_rank
+    idx = torch.tensor([(r * h + j) // G for j in range(h)], device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _gqa_scores(q, k, cfg):
     """(B,L,H,dh)×(B,S,Hk,dh) → (B,Hk,G,L,S) grouped scores, fp32: one
     batched product over (B, Hk) of the group's (G·L, dh) queries."""
     B, L, h, dh = q.shape
-    hk, S = cfg.n_kv_heads, k.shape[1]
+    hk, S = k.shape[2], k.shape[1]
     g = h // hk
     qg = q.reshape(B, L, hk, g, dh).permute(0, 2, 3, 1, 4).reshape(B * hk, g * L, dh)
     kt = k.permute(0, 2, 3, 1).reshape(B * hk, dh, S)
@@ -99,6 +125,7 @@ def full_attention(p, x, cfg, *, causal=True, window=0, x_kv=None, positions=Non
         positions = _positions(B, L, x.device)
     q, k, v = _qkv(p, x, x_kv, cfg, positions,
                    positions if kv_positions is None else kv_positions)
+    k, v = _local_kv(q, k, v, cfg)
     scores = _gqa_scores(q, k, cfg)
     qi = torch.arange(L, device=x.device)[:, None]
     kj = torch.arange(S, device=x.device)[None, :]
@@ -110,7 +137,7 @@ def full_attention(p, x, cfg, *, causal=True, window=0, x_kv=None, positions=Non
     scores = scores.masked_fill(mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, v, cfg, x.dtype)
-    return matmul(out, p["wo"])
+    return out_proj(out, p["wo"], cfg.n_heads * cfg.head_dim_)
 
 
 def banded_attention(p, x, cfg, *, window, positions=None):
@@ -125,7 +152,8 @@ def banded_attention(p, x, cfg, *, window, positions=None):
     if positions is None:
         positions = _positions(B, L, x.device)
     q, k, v = _qkv(p, x, x, cfg, positions, positions)
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    k, v = _local_kv(q, k, v, cfg)
+    h, hk, dh = q.shape[2], k.shape[2], cfg.head_dim_
     g = h // hk
     kb = k.reshape(B, nb, W, hk, dh)
     vb = v.reshape(B, nb, W, hk, dh)
@@ -146,7 +174,7 @@ def banded_attention(p, x, cfg, *, window, positions=None):
     vv = v2.permute(0, 1, 3, 2, 4).reshape(B * nb * hk, 2 * W, dh)
     out = matmul_f32(pv, vv, out_dtype=x.dtype).reshape(B, nb, hk, g, W, dh)
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, L, h * dh)
-    return matmul(out, p["wo"])
+    return out_proj(out, p["wo"], cfg.n_heads * cfg.head_dim_)
 
 
 def flash_attention(p, x, cfg, *, causal=True, window=0, positions=None, q_chunk=1024,
@@ -163,7 +191,8 @@ def flash_attention(p, x, cfg, *, causal=True, window=0, positions=None, q_chunk
     if positions is None:
         positions = _positions(B, L, x.device)
     q, k, v = _qkv(p, x, x, cfg, positions, positions)
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    k, v = _local_kv(q, k, v, cfg)
+    h, hk, dh = q.shape[2], k.shape[2], cfg.head_dim_
     g = h // hk
     dev = x.device
     outs = []
@@ -197,7 +226,7 @@ def flash_attention(p, x, cfg, *, causal=True, window=0, positions=None, q_chunk
         out = acc / torch.clamp_min(l, 1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, h * dh))
     out = torch.cat(outs, dim=1).to(x.dtype)
-    return matmul(out, p["wo"])
+    return out_proj(out, p["wo"], cfg.n_heads * cfg.head_dim_)
 
 
 def use_flash(cfg, L: int) -> bool:
@@ -216,12 +245,13 @@ def kernel_flash_attention(p, x, cfg, *, causal=True, window=0, positions=None):
     if positions is None and cfg.rope_theta > 0:
         positions = _positions(B, L, x.device)
     q, k, v = _qkv(p, x, x, cfg, positions, positions)
-    h, dh = cfg.n_heads, cfg.head_dim_
+    k, v = _local_kv(q, k, v, cfg)
+    h, dh = q.shape[2], cfg.head_dim_
     o = kflash.flash_mha(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), causal=causal, window=window)
     out = o.transpose(1, 2).reshape(B, L, h * dh)
-    return matmul(out.to(x.dtype), p["wo"])
+    return out_proj(out.to(x.dtype), p["wo"], cfg.n_heads * cfg.head_dim_)
 
 
 # ------------------------------------------------------------- decoding ----
@@ -240,27 +270,53 @@ def decode_attention(p, x, cfg, cache, pos, *, window=0, active=None):
     masked index write (torch has no ``mode="drop"``)."""
     B = x.shape[0]
     S = cache["k"].shape[1]
+    sh = sharder()
+    cp = sh is not None and sh.context_parallel
+    start = sh.cache_span(S * sh.data.size)[0] if cp else 0   # this rank's span of the cache
     positions = pos[:, None]                         # (B, 1)
     q, k_new, v_new = _qkv(p, x, x, cfg, positions, positions)
     rows = torch.arange(B, device=x.device)
-    if active is None:
+    if active is None and not cp:
         cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
         cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
-    else:
-        live = (active & (pos < S))[:, None, None]
-        wpos = pos.clamp(max=S - 1)
+    else:                        # inactive rows, and positions off this rank's span, keep theirs
+        lp = pos - start
+        live = ((lp >= 0) & (lp < S))[:, None, None]
+        if active is not None:
+            live = live & active[:, None, None]
+        wpos = lp.clamp(0, S - 1)
         for name, new in (("k", k_new), ("v", v_new)):
             c = cache[name]
             c[rows, wpos] = torch.where(live, new[:, 0].to(c.dtype), c[rows, wpos])
-    scores = _gqa_scores(q, cache["k"], cfg)         # (B,hk,g,1,S)
-    kj = torch.arange(S, device=x.device)[None, :]
+    k, v = _local_kv(q, cache["k"], cache["v"], cfg)
+    scores = _gqa_scores(q, k, cfg)                  # (B,hk,g,1,S)
+    kj = start + torch.arange(S, device=x.device)[None, :]
     invalid = kj > positions                         # (B, S)
     if window:
         invalid |= kj <= positions - window
     scores = scores.masked_fill(invalid[:, None, None, None, :], NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, cache["v"], cfg, x.dtype)
-    return matmul(out, p["wo"]), cache
+    if cp:
+        out = _cp_attend(scores, v, x.dtype, sh.data)
+    else:
+        out = _gqa_out(torch.softmax(scores, dim=-1), v, cfg, x.dtype)
+    return out_proj(out, p["wo"], cfg.n_heads * cfg.head_dim_), cache
+
+
+def _cp_attend(scores, v, dtype, data):
+    """Softmax · V over a cache split by length over ``data``: the row max
+    by pmax, Σexp by psum, then each span's probabilities (rounded to
+    ``dtype`` as the one-rank path rounds them) times its V, summed in f32
+    over the spans and rounded once."""
+    m = coll.pmax(scores.amax(dim=-1), data, role="cp_combine")
+    e = torch.exp(scores - m[..., None])
+    den = coll.psum(e.sum(dim=-1), data, role="cp_combine")
+    probs = e / den[..., None]
+    B, hk, g, L, S = probs.shape
+    dh = v.shape[-1]
+    pv = matmul_f32(probs.to(dtype).reshape(B * hk, g * L, S),
+                    v.permute(0, 2, 1, 3).reshape(B * hk, S, dh))
+    out = coll.psum(pv, data, role="cp_combine").to(dtype).reshape(B, hk, g, L, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, L, hk * g * dh)
 
 
 def verify_attention(p, x, cfg, cache, pos, *, window=0, active=None):
@@ -303,7 +359,7 @@ def verify_attention(p, x, cfg, cache, pos, *, window=0, active=None):
     scores = scores.masked_fill(invalid[:, None, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = _gqa_out(probs, cache["v"], cfg, x.dtype)
-    return matmul(out, p["wo"]), cache
+    return out_proj(out, p["wo"], cfg.n_heads * cfg.head_dim_), cache
 
 
 def cross_kv(p, memory, cfg):
@@ -329,11 +385,15 @@ def cross_decode(p, x, cfg, cache):
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     probs = torch.softmax(_gqa_scores(q, cache["k"], cfg), dim=-1)
     out = _gqa_out(probs, cache["v"], cfg, x.dtype)
-    return matmul(out, p["wo"])
+    return out_proj(out, p["wo"], cfg.n_heads * cfg.head_dim_)
 
 
 def init_kv_cache(cfg, batch, seq_len, dtype, device, repeats):
-    """Zero K/V caches for ``repeats`` stacked layers: (R, B, S, Hk, dh)."""
-    shape = (repeats, batch, seq_len, cfg.n_kv_heads, cfg.head_dim_)
+    """Zero K/V caches for ``repeats`` stacked layers: (R, B, S, Hk, dh); on
+    a grid this rank's KV heads and, with context parallelism, its span."""
+    hk, sh = cfg.n_kv_heads, sharder()
+    if sh is not None:
+        seq_len, hk = sh.cache_span(seq_len)[1], sh.kv_heads(hk)
+    shape = (repeats, batch, seq_len, hk, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -3,14 +3,30 @@
 Numeric discipline (paper §2.1 "mixed-precision GEMM"): params/activations
 are stored in the policy dtype (bf16); every matmul accumulates in fp32 and
 is rounded back to the storage dtype; norms/softmax run in fp32.
+
+On a grid of ranks (``distributed.sharding.make_activation_sharder``,
+installed by ``models.transformer.activation_sharding``) the layers read
+this rank's blocks: the MLP's ``w_gate``/``w_up``/``w_in`` are column
+blocks and ``w_down``/``w_out`` row blocks, so ``mlp_apply`` leaves a
+partial sum that the sublayer's boundary sums over "model"; an embedding
+table of a vocab block is looked up vocab-parallel (``embed_lookup``).
 """
 
 from __future__ import annotations
+
+import contextvars
 
 import torch
 import torch.nn.functional as F
 
 ACC = torch.float32  # f32-ok: accumulation dtype (GEMM outputs, norms, softmax)
+
+# the grid's activation sharder of the running forward (None off a grid)
+SHARDER = contextvars.ContextVar("repro_torch_sharder", default=None)
+
+
+def sharder():
+    return SHARDER.get()
 
 
 def chunk_pad(length: int, chunk: int) -> tuple[int, int]:
@@ -93,6 +109,17 @@ def matmul_f32(a, b, out_dtype=None):
     return out if out_dtype is None else out.to(out_dtype)
 
 
+def out_proj(x, w, whole_rows=None):
+    """``matmul(x, w)`` into the residual stream. On a grid, a row block of
+    ``w`` (fewer than ``whole_rows`` rows: a row-parallel product) gives its
+    f32 partial product, which the sublayer sums over "model" in f32 and
+    rounds once, as one rank rounds the whole product once."""
+    if SHARDER.get() is None or whole_rows is None or w.shape[-2] == whole_rows:
+        return matmul(x, w)
+    y = matmul_f32(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def rms_norm(x, scale, eps):
     xf = x.to(ACC)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -100,7 +127,13 @@ def rms_norm(x, scale, eps):
     return (out * (1.0 + scale.to(ACC))).to(x.dtype)
 
 
-def embed_lookup(table, ids):
+def embed_lookup(table, ids, vocab_size=None):
+    """``table[ids]``; on a grid, a table of ``vocab_size`` rows split over
+    "model" is looked up vocab-parallel: ids outside this rank's rows read
+    zeros, then Σ over "model"."""
+    sh = SHARDER.get()
+    if sh is not None and vocab_size is not None and table.shape[0] < vocab_size:
+        return sh.embed(table, ids)
     return table[ids]
 
 
@@ -124,12 +157,12 @@ def rope_apply(x, cos, sin):
 
 
 # ------------------------------------------------------------------ MLP ----
-def mlp_apply(p, x, act):
+def mlp_apply(p, x, act, d_ff=None):
     if act == "swiglu":
         g = matmul(x, p["w_gate"])
         u = matmul(x, p["w_up"])
         h = (F.silu(g.to(ACC)) * u.to(ACC)).to(x.dtype)
-        return matmul(h, p["w_down"])
+        return out_proj(h, p["w_down"], d_ff)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(matmul(x, p["w_in"]).to(ACC), approximate="tanh").to(x.dtype)
-    return matmul(h, p["w_out"])
+    return out_proj(h, p["w_out"], d_ff)

@@ -38,6 +38,17 @@ package's ``lax.scan``), with EOS / per-request budgets (finished rows
 freeze ``pos``, leave their cache untouched and emit ``pad_id``).
 Randomness comes from an explicit ``torch.Generator``.
 
+On a grid of ranks (``models.transformer.activation_sharding`` with a
+``distributed.sharding`` sharder) every method is this rank's program over
+its blocks (``distributed.sharding.materialize``) and its batch rows: the
+embedding and the head are vocab-parallel when the vocab divides "model"
+(``_head`` gives this rank's block of the logits; the tied head is the
+embedding's block transposed), the loss is the vocab-parallel cross
+entropy (a pmax of the row max, psums of Σexp and of the target logit: the
+(B, L, V) logits are never gathered), and greedy sampling takes the local
+argmax, then the best over "model", ties to the lowest global index. The
+serving state is the rank's block of ``cache_shardings``' specs.
+
 Slot-pool serving (continuous batching) keeps a ``SlotState`` arena on the
 device: ``prefill_into`` writes new requests' rows into free slots and
 ``decode_segment`` advances every slot ``seg_len`` steps. Speculative
@@ -61,7 +72,7 @@ from repro_torch.core.bucketing import BucketedParams
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (ACC, dense_init, embed_lookup, matmul_f32, rms_norm,
-                                      rms_norm_init)
+                                      rms_norm_init, sharder)
 
 # MoE load-balance penalty weight in the training objective (the JAX
 # package's ``AUX_LOSS_COEF``)
@@ -298,10 +309,25 @@ class Model:
     # ------------------------------------------------------------ helpers --
     def _head(self, params, x):
         cfg = self.cfg
-        x = rms_norm(x, params.decoder.final_norm, cfg.norm_eps)
+        x = rms_norm(x, tf.shard_act(params.decoder.final_norm, "norm"), cfg.norm_eps)
         w = params.embed.T if cfg.tie_embeddings else params.lm_head
+        x = tf.shard_act(x, "block_in", tp=w.shape[-1] < cfg.vocab_size)
         logits = matmul_f32(x.reshape(-1, x.shape[-1]), w)     # fp32
         return logits.reshape(*x.shape[:-1], w.shape[-1])
+
+    def _sampler(self):
+        """``sample_logits``; on a grid with vocab-block logits, greedy
+        through the sharder's cross-rank argmax."""
+        sh, V = sharder(), self.cfg.vocab_size
+
+        def sample(logits, generator, temperature=0.0, top_k=0):
+            if sh is None or logits.shape[-1] == V:
+                return sample_logits(logits, generator, temperature, top_k)
+            if temperature > 0.0:
+                raise ValueError("sampling from vocab-parallel logits: greedy only "
+                                 "(temperature 0)")
+            return sh.argmax(logits)
+        return sample
 
     def _has_recurrent_state(self) -> bool:
         return any(s.kind in tf.RECURRENT for g in self.cfg.decoder_program() for s in g.period)
@@ -332,7 +358,7 @@ class Model:
     def _decoder_input(self, params, batch):
         """Token embeddings, with the VLM patch prefix put in front of them
         in the model dtype."""
-        x = embed_lookup(params.embed, batch["tokens"])
+        x = embed_lookup(params.embed, batch["tokens"], self.cfg.vocab_size)
         if self.cfg.family == "vlm":
             x = torch.cat([batch["frontend"].to(device=x.device, dtype=x.dtype), x], dim=1)
         return x
@@ -347,7 +373,7 @@ class Model:
         cfg = self.cfg
         params = as_view(params)
         memory = self._encode(params, batch.get("frontend"))
-        x = self._decoder_input(params, batch)
+        x = tf.shard_act(self._decoder_input(params, batch), "seq")
         aux = torch.zeros((), dtype=ACC, device=x.device)
         for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
             x, a = tf.group_apply(gp, x, g, cfg, memory=memory, remat=remat)
@@ -373,7 +399,14 @@ class Model:
         logits, aux = self.forward(params, batch, remat=remat)
         if self.cfg.family == "vlm":
             logits = logits[:, batch["frontend"].shape[1]:]
-        ce = self.token_ce(logits, batch["labels"])
+        sh = sharder()
+        if sh is not None and logits.shape[-1] < self.cfg.vocab_size:   # vocab-parallel
+            targets = batch["labels"][..., 1:]
+            mask = (targets >= 0).to(ACC)
+            nll = sh.ce(logits[..., :-1, :], targets.clamp_min(0))
+            ce = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        else:
+            ce = self.token_ce(logits, batch["labels"])
         total = ce + AUX_LOSS_COEF * aux
         return total, {"ce": ce, "aux": aux, "ppl": torch.exp(ce)}
 
@@ -430,7 +463,7 @@ class Model:
         caches bit-identical; their logits are garbage the caller discards."""
         cfg = self.cfg
         params = as_view(params)
-        x = embed_lookup(params.embed, token)
+        x = embed_lookup(params.embed, token, cfg.vocab_size)
         for g, gp, c in zip(cfg.decoder_program(), params.decoder.groups, state.layers):
             x, _ = tf.group_decode(gp, x, g, cfg, c, state.pos, active=active)
         adv = 1 if active is None else active.to(torch.int64)
@@ -448,7 +481,7 @@ class Model:
         back (``spec_verify``)."""
         cfg = self.cfg
         params = as_view(params)
-        x = embed_lookup(params.embed, tokens)
+        x = embed_lookup(params.embed, tokens, cfg.vocab_size)
         for g, gp, c in zip(cfg.decoder_program(), params.decoder.groups, state.layers):
             x, _ = tf.group_verify(gp, x, g, cfg, c, state.pos, active=active)
         W = tokens.shape[1]
@@ -483,13 +516,14 @@ class Model:
         logits, state = self.prefill(params, batch, cache_len, prompt_lens=prompt_lens)
         if generator is None:           # the JAX package's default key is PRNGKey(0)
             generator = torch.Generator(device=logits.device).manual_seed(0)
-        tok = sample_logits(logits[:, -1], generator, temperature, top_k)[:, None]
+        sample = self._sampler()
+        tok = sample(logits[:, -1], generator, temperature, top_k)[:, None]
 
         if eos_id is None and gen_lens is None:       # closed-batch path
             out = [tok[:, 0]]
             for _ in range(max_new_tokens - 1):
                 logits, state = self.decode_step(params, state, tok)
-                tok = sample_logits(logits[:, -1], generator, temperature, top_k)[:, None]
+                tok = sample(logits[:, -1], generator, temperature, top_k)[:, None]
                 out.append(tok[:, 0])
             return torch.stack(out, dim=1), state
 
@@ -506,7 +540,7 @@ class Model:
         for _ in range(max_new_tokens - 1):
             run = ~done
             logits, state = self.decode_step(params, state, tok, active=run)
-            nxt = sample_logits(logits[:, -1], generator, temperature, top_k)
+            nxt = sample(logits[:, -1], generator, temperature, top_k)
             n = n + run.to(torch.int64)
             done = done | (run & (n >= budget))
             if eos_id is not None:

@@ -15,10 +15,22 @@ Caches are updated in place: attention K/V rows at the scatter site
 (``attention.decode_attention``), the recurrent states (mamba ``h``/
 ``conv``, rwkv ``S``/``last_x``) by ``_freeze_rows``, which writes the
 advanced state into the cache and keeps inactive rows bit-identical.
+
+Activation sharding: the model code is grid-agnostic; ``activation_sharding``
+installs a grid's sharder (``distributed.sharding.make_activation_sharder``)
+and ``shard_act`` applies it at each sublayer's TP boundary, where the JAX
+package applies ``with_sharding_constraint`` to the residual: the normed
+input of a sublayer split over "model" (the identity, whose gradient is
+summed over "model"; with sequence parallelism an all-gather over the
+sequence) and its partial output (f32, ``layers.out_proj``: summed over
+"model" in f32, with sequence parallelism reduce-scattered over the
+sequence, then rounded once to the residual's dtype). Off a grid both are
+the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -30,10 +42,47 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (ACC, dense_init, matmul_f32, mlp_apply, rms_norm,
-                                      rms_norm_init)
+from repro_torch.models.layers import (ACC, SHARDER, dense_init, matmul_f32, mlp_apply,
+                                      rms_norm, rms_norm_init, sharder)
 
 RECURRENT = ("mamba", "rwkv_tmix", "rwkv_cmix")
+
+
+# ---------------------------------------------------- activation sharding --
+@contextlib.contextmanager
+def activation_sharding(fn):
+    """Install a grid's activation sharder for the forwards (and backwards)
+    run inside."""
+    tok = SHARDER.set(fn)
+    try:
+        yield
+    finally:
+        SHARDER.reset(tok)
+
+
+def shard_act(x, kind="seq", **kw):
+    fn = SHARDER.get()
+    return fn(x, kind, **kw) if fn is not None else x
+
+
+def _split_over_model(p, sub: Sub, cfg: ModelConfig) -> bool:
+    """Whether this rank holds a block of the sublayer's heads or hidden
+    units (its output is then a partial sum over "model")."""
+    if sub.kind == "attn":
+        return p["wq"].shape[-1] < cfg.n_heads * cfg.head_dim_
+    if sub.kind == "mlp":
+        return p["w_gate" if cfg.act == "swiglu" else "w_in"].shape[-1] < cfg.d_ff
+    return False
+
+
+def _normed(p, x, sub: Sub, cfg: ModelConfig):
+    """(the sublayer's input: its norm of x at the TP boundary, whether the
+    sublayer is split over "model")."""
+    if sharder() is None:
+        return rms_norm(x, p["norm"], cfg.norm_eps), False
+    tp = _split_over_model(p, sub, cfg)
+    h = rms_norm(x, shard_act(p["norm"], "norm"), cfg.norm_eps)
+    return shard_act(h, "block_in", tp=tp), tp
 
 
 # ------------------------------------------------------------------- init --
@@ -87,7 +136,7 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, memory=None, positions=None):
     attends to ``memory`` (B, F, D) on the masked path, without a mask or
     rotary embedding."""
     aux = None
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h, tp = _normed(p, x, sub, cfg)
     impl = cfg.attention_impl
     if sub.kind == "attn":
         if sub.causal and attn.use_flash(cfg, x.shape[1]):
@@ -104,7 +153,7 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, memory=None, positions=None):
     elif sub.kind == "cross_attn":
         out = attn.full_attention(p, h, cfg, causal=False, x_kv=memory, rope=False)
     elif sub.kind == "mlp":
-        out = mlp_apply(p, h, cfg.act)
+        out = mlp_apply(p, h, cfg.act, cfg.d_ff)
     elif sub.kind == "moe":
         out, aux = moe_lib.moe_apply(p, h, cfg)
     elif sub.kind == "mamba":
@@ -115,7 +164,7 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, memory=None, positions=None):
         out = rwkv_lib.rwkv_cmix_apply(p, h, cfg)
     else:
         raise ValueError(sub.kind)
-    return x + out, aux
+    return x + shard_act(out, "block_out", tp=tp).to(x.dtype), aux
 
 
 REMAT_MODES = ("none", "full", "dots")
@@ -192,13 +241,13 @@ def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
     """One-token step. Returns (x_out, cache or None); caches are updated
     in place (attention: ``attention.decode_attention``; recurrent states:
     ``_freeze_rows``)."""
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    h, tp = _normed(p, x, sub, cfg)
     if sub.kind == "attn":
         out, nc = attn.decode_attention(p, h, cfg, cache, pos, window=sub.window, active=active)
     elif sub.kind == "cross_attn":
         out, nc = attn.cross_decode(p, h, cfg, cache), cache
     elif sub.kind == "mlp":
-        out, nc = mlp_apply(p, h, cfg.act), None
+        out, nc = mlp_apply(p, h, cfg.act, cfg.d_ff), None
     elif sub.kind == "moe":
         out, nc = moe_lib.moe_decode_apply(p, h, cfg)[0], None
     elif sub.kind in RECURRENT:
@@ -208,7 +257,7 @@ def sub_decode(p, x, sub: Sub, cfg: ModelConfig, cache, pos, active=None):
         nc = _freeze_rows(new, cache, active)
     else:
         raise ValueError(sub.kind)
-    return x + out, nc
+    return x + shard_act(out, "block_out", tp=tp).to(x.dtype), nc
 
 
 def _group_step(sub_step, params, x, group: Group, cfg: ModelConfig, caches, pos, active):
@@ -299,8 +348,14 @@ def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len, memory=N
             if s.kind == "attn":
                 hn = rms_norm(x, p["norm"], cfg.norm_eps)
                 _, k, v = attn._qkv(p, hn, hn, cfg, positions, positions)
-                caches[key]["k"][layer, :, :L] = k
-                caches[key]["v"][layer, :, :L] = v
+                if k.shape[2] != caches[key]["k"].shape[3]:
+                    raise ValueError(f"a cache of {caches[key]['k'].shape[3]} KV heads a rank for "
+                                     f"attention over {k.shape[2]}: serving on a grid needs "
+                                     f"tp_mode 'full' (ROADMAP.md Queue 1 item 7b)")
+                lo = 0 if sharder() is None else sharder().cache_span(cache_len)[0]
+                n = max(0, min(caches[key]["k"].shape[2], L - lo))   # this rank's span
+                caches[key]["k"][layer, :, :n] = k[:, lo:lo + n]
+                caches[key]["v"][layer, :, :n] = v[:, lo:lo + n]
             elif s.kind == "cross_attn":
                 for name, t in attn.cross_kv(p, memory, cfg).items():
                     caches[key][name][layer] = t

@@ -227,7 +227,8 @@ def _apply_opt(opt: CollageAdamW, grads, params, opt_state, donate=False, reduce
 def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
                     remat: str = "none", grad_compression: str = "none",
                     psum_axis: Optional["coll.Axis"] = None,
-                    flash_min_len: Optional[int] = None, donate: bool = False) -> Callable:
+                    flash_min_len: Optional[int] = None, donate: bool = False,
+                    grid=None) -> Callable:
     """Build ``train_step(state, batch) → (state, metrics)``; metrics are
     0-dim tensors on the device (reading one synchronises). ``donate``
     (bucketed layout): the step writes the new state over the one it is
@@ -236,7 +237,18 @@ def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
     ``psum_axis``: a ``collectives.Axis`` whose ranks each run this step on
     their own batch; the gradients are averaged over them (compressed: the
     payload on the wire is the compressed dtype). Without it compression
-    is a local round trip that models the wire loss."""
+    is a local round trip that models the wire loss.
+
+    ``grid`` (a ``launch.mesh.Grid``): the step of one rank of an FSDP × TP
+    grid (``train.grid.make_grid_train_step`` under the default rules), on
+    its blocks of the state and the global batch."""
+    if grid is not None:
+        from repro_torch.train.grid import make_grid_train_step
+        if microbatch or remat != "none" or grad_compression != "none" or psum_axis is not None \
+                or donate:
+            raise ValueError("the grid step takes no microbatch, remat, grad_compression, "
+                             "psum_axis or donate (ROADMAP.md Queue 1 item 7b)")
+        return make_grid_train_step(with_flash(model, flash_min_len), opt, grid)
     if psum_axis is not None and not isinstance(psum_axis, coll.Axis):
         raise TypeError(f"psum_axis: a collectives.Axis, not {type(psum_axis).__name__}")
     accum_grads = make_accum_grads(model, microbatch=microbatch, remat=remat,

@@ -104,3 +104,53 @@ def test_audit_runs_with_jax_unimportable(tmp_path):
                          timeout=300, cwd=tmp_path)
     assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr}"
     assert "AUDIT_WITHOUT_JAX_OK" in out.stdout
+
+
+def test_grid_runs_with_jax_unimportable():
+    """The grid (``launch.mesh``, ``distributed.sharding``, the grid train
+    step, the legacy ``pipeline_apply``) with JAX made unimportable: a
+    one-rank grid step equals the plain step, the specs come out, the
+    grid serves."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.core.collage import CollageAdamW
+        from repro_torch.data.synthetic import make_batch_fn
+        from repro_torch.distributed import pipeline as pp, sharding as sh
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.model import build_model, param_dict
+        from repro_torch.train import grid as grid_lib, train_loop
+        cfg = get_config("granite-3-2b", smoke=True)
+        model = build_model(cfg)
+        opt = CollageAdamW(1e-3, compute_metrics=True)
+        g = mesh_lib.make_mesh(1, 1, device="cpu")
+        batch = make_batch_fn(cfg, ShapeConfig("t", 16, 2, "train"), device="cpu")(0)
+        s0 = train_loop.init_state(model, opt, 0, device="cpu")
+        s1, m1 = train_loop.make_train_step(model, opt)(s0, batch)
+        s2, m2 = train_loop.make_train_step(model, opt, grid=g)(grid_lib.shard_state(s0, g), batch)
+        assert all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(sh.named_leaves(s1.params), sh.named_leaves(s2.params)))
+        assert float(m1["loss"]) == float(m2["loss"]), (m1, m2)
+        specs = sh.state_shardings(s0, mesh_lib.grid_shape(2, 4))
+        assert specs.params["embed"] == sh.P("model", "data"), specs.params["embed"]
+        params = model.init(0, device="cpu")
+        with torch.no_grad(), tf.activation_sharding(sh.make_activation_sharder(g)):
+            toks, _ = model.generate(params, {"tokens": torch.arange(8)[None]}, 3)
+        assert toks.shape == (1, 3)
+        out = pp.pipeline_apply(lambda p, h: torch.tanh(h @ p["w"][0]),
+                                pp.split_stages({"w": torch.eye(4)[None].repeat(2, 1, 1)}, 2),
+                                torch.ones(3, 2, 4))
+        assert out.shape == (3, 2, 4)
+        print("GRID_WITHOUT_JAX_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr}"
+    assert "GRID_WITHOUT_JAX_OK" in out.stdout
