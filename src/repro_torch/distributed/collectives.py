@@ -27,7 +27,10 @@ and the sum of a column-parallel input's gradient), ``vocab_reduce`` (the
 vocab-parallel embedding, loss and argmax), ``cp_combine`` (the
 context-parallel decode's log-sum-exp combine over "data"), ``sp_scatter``
 and ``sp_gather`` (sequence parallelism's reduce-scatter and all-gather
-over the sequence), ``grad`` (a dp-replicated leaf's gradient sum).
+over the sequence), ``grad`` (a dp-replicated leaf's gradient sum),
+``moe_dp`` (the MoE's sums over the dp ranks of a global batch: the
+per-expert assignment counts, for positions and capacity, and the aux
+loss's router probabilities).
 
 Along a tensor dim (``all_gather_dim``, ``psum_scatter_dim``, ``reduce_to``,
 ``copy_to``, ``gather_rep_dim``, ``split_dim``) each collective is an
@@ -159,6 +162,20 @@ def _all_to_all(w: torch.Tensor, axis: Axis, role: str) -> torch.Tensor:
     _record("all_to_all", role, w)
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=axis.group)
+    return out
+
+
+def sum_disjoint(x: torch.Tensor, axis: Optional[Axis], role: str = "tp_reduce") -> torch.Tensor:
+    """Σ of ``x`` over the ranks where at each element at most one rank's
+    part is nonzero (blocks of a whole, zeros elsewhere): exact in ``x``'s
+    own dtype, so it is summed there, with no accumulator copies (``psum``
+    of such parts gives the same numbers). An all-gather and a local sum."""
+    if axis is None or not axis.distributed:
+        return x.clone()
+    parts = _gather(x, axis, role)
+    out = parts[0]
+    for p in parts[1:]:
+        out.add_(p)
     return out
 
 
@@ -319,3 +336,38 @@ def split_dim(x: torch.Tensor, axis: Optional[Axis], dim: int,
 def gather_dim(x: torch.Tensor, axis: Optional[Axis], dim: int, role: str = "gather") -> torch.Tensor:
     """All-gather along ``dim`` without autograd (assembling results)."""
     return x if _local(axis) else _gather_dim(x, axis, dim, role)
+
+
+class _CountOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.first = axis.rank == 0
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+def count_once(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The identity, whose gradient passes on the axis' rank 0 only (zeros
+    elsewhere): for a computation every rank repeats whole on an input
+    whose gradient is later summed over the axis, so that its part counts
+    once."""
+    return x if _local(axis) else _CountOnce.apply(x, axis)
+
+
+def exclusive_prefix(x: torch.Tensor, axis: Optional[Axis], role: str = "moe_dp") -> tuple:
+    """(Σ of ``x`` over the ranks before this one, Σ over all ranks) of a
+    small integer tensor: one all-gather, then sums in rank order, on the
+    device (nothing is read back to the host)."""
+    if _local(axis):
+        return torch.zeros_like(x), x
+    parts = _gather(x, axis, role)
+    before = torch.zeros_like(x)
+    for p in parts[:axis.rank]:
+        before = before + p
+    total = before
+    for p in parts[axis.rank:]:
+        total = total + p
+    return before, total

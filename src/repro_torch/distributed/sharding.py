@@ -23,7 +23,9 @@ None, an axis name, or a tuple of names. Paths are the JAX package's
 order), ``gather_block`` is its inverse over the grid's process groups.
 ``make_activation_sharder`` gives the object the model's TP boundaries
 call (``models.transformer.shard_act``); ``materialize`` turns a rank's
-parameter blocks into the tensors its forward reads.
+parameter blocks into the tensors its forward reads, with each sublayer
+kind's gathers and gradient sums over "model" (attention, MoE, Mamba, RWKV
+time-mix and channel-mix).
 
 The data-parallel / ZeRO part (``dp_size``, ``bucket_pad_multiple``,
 ``shard_of``) serves the sharded engine (``train.sharded``): every flat
@@ -404,39 +406,111 @@ def owned(spec, grid) -> bool:
 # the rank's forward: parameters and TP boundaries
 # ==========================================================================
 
-def _sibling(path: str, name: str) -> str:
-    return path[:path.rfind("[")] + f"[{name!r}]"
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a sublayer kind runs split over "model", the one table the
+    grid's modules read (``materialize``, ``models.transformer``,
+    ``train.grid.check_grid``).
+
+    ``key``: the leaf that names the kind (``sublayer_kind``); ``mark``:
+    the leaf whose block says whether the sublayer is split, split at dim
+    ``dim`` of ``whole(cfg)`` entries; ``together``: the leaves that must be
+    split when ``mark`` is (a rank's blocks of one split); ``summed``:
+    leaves stored replicated over "model" that every rank applies to its
+    own heads or channels, or ahead of a split product, so their gradient
+    is partial per rank and summed over "model"; ``gathered``: leaves whose
+    stored "model" block does not fall on the split the sublayer computes
+    with, all-gathered over "model" (their gradient reduce-scattered)."""
+    key: str
+    mark: str
+    dim: int
+    whole: object
+    together: tuple = ()
+    summed: tuple = ()
+    gathered: tuple = ()
 
 
-def materialize(params, specs, grid, head_dim: int):
+# in the order ``sublayer_kind`` tries them (RWKV's time-mix also has a wr)
+SPLITS = {
+    "attn": Split("wq", "wq", -1, lambda c: c.n_heads * c.head_dim_,
+                  summed=("q_norm", "k_norm")),
+    "moe": Split("router", "we_gate", -3, lambda c: c.n_experts, ("we_up", "we_down")),
+    "mamba": Split("in_proj", "dt_bias", -1, lambda c: c.ssm_expand * c.d_model,
+                   ("in_proj", "conv_w", "x_proj", "dt_proj", "A_log", "D", "out_proj"),
+                   gathered=("in_proj",)),
+    "rwkv_tmix": Split("w0", "wr", -1, lambda c: c.d_model, ("wk", "wv", "wg", "w_b", "wo"),
+                       summed=("mu", "w_a", "w0", "u", "ln_scale")),
+    "rwkv_cmix": Split("wr", "wk", -1, lambda c: c.d_ff, ("wr", "wv"), summed=("mu",),
+                       gathered=("wv",)),
+}
+
+
+def sublayer_kind(names) -> Optional[str]:
+    """The sublayer kind of a dict of leaves named ``names``."""
+    for kind, rule in SPLITS.items():
+        if rule.key in names:
+            return kind
+    return None
+
+
+def materialize(params, specs, grid, head_dim: int, over_dp: bool = True):
     """The tensors a rank's forward reads, from its parameter blocks, with
     autograd to the blocks: each dp-sharded dim all-gathered over dp (its
-    gradient reduce-scattered), each dp-replicated leaf's gradient summed
-    over dp, and, inside an attention sublayer that is split over "model",
-    the leaves every rank applies to its own heads: a KV projection whose
-    block does not fall on head boundaries all-gathered over "model" (its
-    stored spec stays), a replicated one and q/k norms with their gradient
-    summed over "model"."""
+    gradient reduce-scattered) and each dp-replicated leaf's gradient
+    summed over dp (``over_dp`` False: neither, for the bucketed layout,
+    whose buckets are gathered and reduce-scattered whole); and, inside a
+    sublayer split over "model":
+
+    * attention: a KV projection whose block does not fall on head
+      boundaries all-gathered over "model" (its stored spec stays), a
+      replicated one and q/k norms with their gradient summed over "model";
+    * Mamba: ``in_proj`` all-gathered over "model" (its column block does
+      not fall on the x/z split: each rank takes its channels of both
+      halves, ``models.ssm``);
+    * RWKV time-mix: ``mu`` and ``w_a`` (applied ahead of split products)
+      and ``w0``, ``u``, ``ln_scale`` (sliced to this rank's heads by
+      ``models.rwkv``) with their gradient summed over "model";
+    * RWKV channel-mix: ``mu`` summed likewise, ``wv`` all-gathered over
+      "model" (the name rule splits its d columns; the product needs the
+      rows of this rank's d_ff block, ``models.rwkv``).
+
+    MoE needs nothing here: its experts are a block of the expert dim, and
+    the router's sums happen in ``models.moe``."""
     by_path = dict(named_leaves(specs))
+    siblings: dict = {}
+    for path in by_path:
+        siblings.setdefault(path[:path.rfind("[")], set()).add(_last_name(path))
     dp, model = grid.axis("dp"), grid.axis("model")
+
+    def split(parent: str, kind: str) -> bool:
+        return "model" in by_path.get(f"{parent}[{SPLITS[kind].mark!r}]", P())
 
     def one(path, x):
         spec = _pad(_spec_of(by_path, path), x.dim())
-        dp_dims = [d for d, e in enumerate(spec) if _names(e) and set(_names(e)) <= {"pod", "data"}]
-        for d in dp_dims:
-            x = coll.all_gather_dim(x, dp, d)
-        if not dp_dims:
-            x = coll.copy_to(x, dp, role="grad")
+        if over_dp:
+            dp_dims = [d for d, e in enumerate(spec)
+                       if _names(e) and set(_names(e)) <= {"pod", "data"}]
+            for d in dp_dims:
+                x = coll.all_gather_dim(x, dp, d)
+            if not dp_dims:
+                x = coll.copy_to(x, dp, role="grad")
         name = _last_name(path)
-        if name == "wq" and "model" in spec and x.shape[-1] % head_dim:
-            raise ValueError(f"{path}: a block of {x.shape[-1]} query columns splits a head of "
-                             f"{head_dim}; tp_mode='mlponly' keeps attention whole")
-        if name in ("wk", "wv", "q_norm", "k_norm") and "model" in _pad(
-                by_path.get(_sibling(path, "wq"), P()), 3):
-            if name in ("q_norm", "k_norm") or "model" not in spec:
-                x = coll.copy_to(x, model)
-            elif x.shape[-1] % head_dim:
-                x = coll.all_gather_dim(x, model, x.dim() - 1, "tp_gather", "tp_scatter")
+        parent = path[:path.rfind("[")]
+        kind = sublayer_kind(siblings.get(parent, ()))
+        if kind is None or not split(parent, kind):
+            return x
+        if kind == "attn":
+            if name == "wq" and x.shape[-1] % head_dim:
+                raise ValueError(f"{path}: a block of {x.shape[-1]} query columns splits a head "
+                                 f"of {head_dim}; tp_mode='mlponly' keeps attention whole")
+            if name in ("wk", "wv") and "model" in spec and x.shape[-1] % head_dim:
+                return coll.all_gather_dim(x, model, x.dim() - 1, "tp_gather", "tp_scatter")
+            if name in ("wk", "wv") and "model" not in spec:
+                return coll.copy_to(x, model)
+        if name in SPLITS[kind].summed:
+            return coll.copy_to(x, model)
+        if name in SPLITS[kind].gathered and "model" in spec:
+            return coll.all_gather_dim(x, model, x.dim() - 1, "tp_gather", "tp_scatter")
         return x
     return map_leaves(one, params)
 
@@ -459,7 +533,15 @@ class GridSharder:
     of the output, with no sum either way.
 
     ``context_parallel``: decode attention over a cache whose length is
-    split over "data" (``models.attention.decode_attention``)."""
+    split over "data" (``models.attention.decode_attention``).
+
+    ``rows_split``: whether the batch rows of the running forward are split
+    over dp (``batch_shardings``), so that a computation over the global
+    batch (the MoE's capacity, positions and aux loss) sums over dp. It is
+    set from the batch: ``local_batch`` cuts this rank's rows and records
+    it; until then it is unknown, and ``dp_rows`` raises on a distributed
+    dp (a batch of 3 on dp 2 is replicated, one of 4 split: which one the
+    forward runs decides the routes)."""
 
     def __init__(self, grid, sp: bool = False, context_parallel: bool = False):
         self.grid = grid
@@ -470,10 +552,39 @@ class GridSharder:
         self.data = grid.axis("data")
         self.tp = grid.tp
         self.seq = False
+        self.rows_split = None
 
     @property
     def model_rank(self) -> int:
         return self.model.rank
+
+    def local_batch(self, batch):
+        """This rank's rows of a global batch (``batch_shardings``: over dp
+        when they divide the dp ranks, else replicated), recording which."""
+        spec = batch_shardings(batch, self.grid)
+        first = named_leaves(spec)[0][1]
+        self.rows_split = bool(first and first[0])
+        return local_tree(batch, spec, self.grid)
+
+    @property
+    def dp_rows(self):
+        """The dp line the batch rows are split over, or None."""
+        if not self.dp.distributed:
+            return None
+        if self.rows_split is None:
+            raise ValueError("the batch rows' split over dp is unknown: take the rank's rows "
+                             "with GridSharder.local_batch")
+        return self.dp if self.rows_split else None
+
+    def block_start(self, local: int, whole: int) -> int:
+        """The first index of this rank's block of ``local`` out of ``whole``
+        along a dim split over "model" (0 when the rank holds it whole)."""
+        return 0 if local == whole else self.model.rank * local
+
+    def local_size(self, n: int) -> int:
+        """A dim of ``n`` a rank holds under ``cache_shardings``' rule: its
+        block over "model" when "model" divides it."""
+        return n // self.tp if n % self.tp == 0 else n
 
     def begin_seq(self, length: int):
         """Sequence parallelism for a train forward of ``length`` tokens."""
@@ -537,10 +648,6 @@ class GridSharder:
             return 0, length
         k = length // self.data.size
         return self.data.rank * k, k
-
-    def kv_heads(self, n_kv: int) -> int:
-        """KV heads a rank's cache holds (``cache_shardings``' rule)."""
-        return n_kv // self.tp if n_kv % self.tp == 0 else n_kv
 
 
 class _VocabCE(torch.autograd.Function):

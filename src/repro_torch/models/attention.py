@@ -393,7 +393,7 @@ def init_kv_cache(cfg, batch, seq_len, dtype, device, repeats):
     a grid this rank's KV heads and, with context parallelism, its span."""
     hk, sh = cfg.n_kv_heads, sharder()
     if sh is not None:
-        seq_len, hk = sh.cache_span(seq_len)[1], sh.kv_heads(hk)
+        seq_len, hk = sh.cache_span(seq_len)[1], sh.local_size(hk)
     shape = (repeats, batch, seq_len, hk, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

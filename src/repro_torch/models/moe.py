@@ -44,7 +44,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ACC, dense_init, matmul, matmul_f32
+from repro_torch.distributed import collectives as coll
+from repro_torch.models.layers import ACC, dense_init, matmul, matmul_f32, sharder
 
 _RECORD: list | None = None
 
@@ -77,11 +78,17 @@ def capacity(tokens: int, cfg) -> int:
     return max(int(tokens * cfg.experts_per_token / cfg.n_experts * cfg.capacity_factor), 1)
 
 
-def route(p, xt, cfg):
+def route(p, xt, cfg, dp=None):
     """Routing of token groups xt (G, T, D) → (probs (G,T,E) f32, idx
     (G,T,K), gates (G,T,K) f32 renormalised, pos (G,T,K) int64, keep
     (G,T,K) bool, C, assignments per expert (G, E) int64). Gates of dropped
-    slots are not zeroed here."""
+    slots are not zeroed here.
+
+    ``dp`` (a ``collectives.Axis``; one group, the rows of the global batch
+    split over its ranks in rank order): the capacity comes from the global
+    token count, each position counts the earlier assignments of every
+    rank (the exclusive prefix of the per-expert counts over dp), and the
+    counts are the global ones."""
     G, T, _ = xt.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     logits = matmul(xt, p["router"]).to(ACC)                    # rounded to bf16 first
@@ -89,7 +96,7 @@ def route(p, xt, cfg):
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :K]
     gates = torch.gather(probs, -1, idx)
     gates = gates / gates.sum(dim=-1, keepdim=True)
-    C = capacity(T, cfg)
+    C = capacity(T * (1 if dp is None else dp.size), cfg)
     # position of each (token, slot) in its expert's buffer: the count of
     # earlier assignments to that expert in (t, k) order (the JAX package's
     # cumsum over one-hots), as the rank in a stable sort by (group, expert)
@@ -100,18 +107,52 @@ def route(p, xt, cfg):
     bounds = torch.searchsorted(skey, torch.arange(G * E + 1, device=xt.device))
     rank = torch.arange(G * T * K, device=xt.device) - bounds[skey]
     pos = torch.empty_like(rank).scatter_(0, order, rank).reshape(G, T, K)
-    return probs, idx, gates, pos, pos < C, C, (bounds[1:] - bounds[:-1]).reshape(G, E)
+    counts = (bounds[1:] - bounds[:-1]).reshape(G, E)
+    if dp is not None:
+        before, counts = coll.exclusive_prefix(counts, dp)
+        pos = pos + torch.gather(before, 1, idx.reshape(G, T * K)).reshape(G, T, K)
+    return probs, idx, gates, pos, pos < C, C, counts
+
+
+def check_groups(cfg, tokens: int, n_dp: int):
+    """Raise when ``moe_group_size`` makes dispatch groups that straddle the
+    dp ranks' rows (``tokens`` a rank, rows split over ``n_dp`` ranks)."""
+    g_sz = _group_size(cfg, tokens * n_dp)
+    if g_sz != tokens * n_dp and tokens % g_sz:
+        raise ValueError(f"{cfg.name}: moe_group_size {g_sz} over {tokens} tokens a dp rank: "
+                         f"dispatch groups that straddle dp ranks are not ported yet "
+                         f"(ROADMAP.md Queue 1 item 7b)")
+
+
+def _group_size(cfg, tokens: int) -> int:
+    g_sz = cfg.moe_group_size or tokens
+    return tokens if tokens % g_sz else g_sz
 
 
 def moe_apply(p, x, cfg):
-    """x (B, L, D) → (out (B, L, D), aux-loss scalar f32)."""
+    """x (B, L, D) → (out (B, L, D), aux-loss scalar f32).
+
+    On a grid whose batch rows are split over dp (``GridSharder.dp_rows``)
+    one dispatch group is the GLOBAL batch, as the JAX function routes it:
+    capacity, positions and the aux loss's sums are taken over dp. Groups of
+    ``moe_group_size`` that fall inside a rank's rows stay rank-local; the
+    aux loss is then the mean over every rank's groups. Where the experts
+    are split over "model" the output is this rank's f32 partial (its
+    experts' rows), summed over "model" at the sublayer's boundary."""
     B, L, D = x.shape
     T = B * L
-    g_sz = cfg.moe_group_size or T
-    if T % g_sz:
-        g_sz = T
+    sh = sharder()
+    dp = None if sh is None else sh.dp_rows
+    n_dp = 1 if dp is None else dp.size
+    check_groups(cfg, T, n_dp)
+    g_sz = _group_size(cfg, T * n_dp)
+    if g_sz == T * n_dp:                 # one group: the global batch
+        out, aux = _moe_dispatch(p, x.reshape(1, T, D), cfg, dp)
+        return out.reshape(B, L, D), aux[0]
     out, aux = _moe_dispatch(p, x.reshape(T // g_sz, g_sz, D), cfg)
-    return out.reshape(B, L, D), aux.mean()
+    aux = aux.mean() if dp is None else coll.reduce_to(aux.sum(), dp, role="moe_dp") \
+        / (T * n_dp // g_sz)
+    return out.reshape(B, L, D), aux
 
 
 def dispatch(xt, idx, pos, keep, C: int, E: int):
@@ -132,36 +173,63 @@ def dispatch(xt, idx, pos, keep, C: int, E: int):
     return buf[:-1].reshape(G, E, C, D).to(xt.dtype), slot
 
 
-def _moe_dispatch(p, xt, cfg):
+def _moe_dispatch(p, xt, cfg, dp=None):
     """Capacity-bounded top-k dispatch over G token groups xt (G, T, D) →
-    (out (G, T, D), aux (G,) f32)."""
+    (out (G, T, D), aux (G,) f32); ``dp``: ``route``'s.
+
+    Expert parallelism: a rank holding E/tp experts (``we_*`` a block of
+    the expert dim over "model", from ``model_rank · E/tp``) routes every
+    token (the input is replicated over "model"), dispatches the (token,
+    slot)s of its experts only and returns the f32 partial combine (gates
+    times its rows, zero for the other slots). Two sums keep the router's
+    gradient whole: the gates where they enter the combine take their
+    gradient summed over "model" (each rank's part covers its experts), and
+    the router's input takes its gradient on model rank 0 only, since the
+    boundary sums the input's gradient over "model" and every rank computes
+    the router's part whole. The aux loss's part is whole on every rank and
+    is never summed."""
     G, T, D = xt.shape
     E, K = cfg.n_experts, cfg.experts_per_token
-    probs, idx, gates, pos, keep, C, counts = route(p, xt, cfg)
+    sh = sharder()
+    E_loc = p["we_gate"].shape[-3]
+    split = sh is not None and E_loc < E
+    e0 = sh.block_start(E_loc, E) if split else 0
+    xr = coll.count_once(xt, sh.model) if split else xt
+    probs, idx, gates, pos, keep, C, counts = route(p, xr, cfg, dp)
     if _RECORD is not None:
         _RECORD.append({"idx": idx, "pos": pos, "keep": keep, "capacity": C})
     gates = gates * keep
-    xe, slot = dispatch(xt, idx, pos, keep, C, E)
+    if split:
+        local = (idx >= e0) & (idx < e0 + E_loc)
+        gates = coll.copy_to(gates, sh.model) * local
+        keep = keep & local
+    xe, slot = dispatch(xt, idx - e0, pos, keep, C, E_loc)
 
     # expert products, one batched product per weight over (E, G·C) rows
-    xe = xe.transpose(0, 1).reshape(E, G * C, D)
+    xe = xe.transpose(0, 1).reshape(E_loc, G * C, D)
     g = matmul_f32(xe, p["we_gate"])
     u = matmul_f32(xe, p["we_up"])
     h = (F.silu(g) * u).to(xt.dtype)
     ye = matmul_f32(h, p["we_down"], out_dtype=xt.dtype)       # (E, G·C, D)
-    ye = ye.reshape(E, G, C, D).transpose(0, 1).reshape(G * E * C, D)
+    ye = ye.reshape(E_loc, G, C, D).transpose(0, 1).reshape(G * E_loc * C, D)
 
     # a dropped (t, k) reads some real row times its zero gate: spread over
     # the rows, so that no row is read by thousands of (t, k) (the gather's
     # backward sums a row's readers one after another)
-    spread = torch.arange(G * T * K, device=xt.device) % (G * E * C)
-    rows = ye[torch.where(slot < G * E * C, slot, spread)].reshape(G, T, K, D)
+    n_rows = G * E_loc * C
+    spread = torch.arange(G * T * K, device=xt.device) % n_rows
+    rows = ye[torch.where(slot < n_rows, slot, spread)].reshape(G, T, K, D)
     w = gates.to(xt.dtype).to(ACC)
-    out = (w[..., None] * rows.to(ACC)).sum(dim=2).to(xt.dtype)
+    out = (w[..., None] * rows.to(ACC)).sum(dim=2)
+    if not split:
+        out = out.to(xt.dtype)
 
     # GShard aux loss: E · Σ_e (fraction of assignments to e) · (mean prob of e)
-    me = probs.mean(dim=1)                                       # (G, E)
-    fe = counts.to(ACC) / (T * K)
+    if dp is None:
+        me = probs.mean(dim=1)                                   # (G, E)
+    else:
+        me = coll.reduce_to(probs.sum(dim=1), dp, role="moe_dp") / (T * dp.size)
+    fe = counts.to(ACC) / (T * K * (1 if dp is None else dp.size))
     aux = E * (fe * me).sum(dim=-1)
     return out, aux
 

@@ -13,6 +13,26 @@ Simplifications of the reference kept as they are: static token-shift mix
 coefficients for r/k/v/g; the *decay* keeps its data-dependent LoRA.
 Parameters carry a leading stack axis of ``repeats`` at init, as every
 sublayer of the port does; the apply functions take one layer's slice.
+
+On a grid (the head and channel dims over "model"):
+
+* time-mix runs this rank's heads: ``wr``/``wk``/``wv``/``wg`` are column
+  blocks on head boundaries, ``w_b`` a column block, ``wo`` a row block
+  (the output an f32 partial, ``layers.out_proj``). ``w0``, ``u`` and
+  ``ln_scale`` are stored whole and sliced here to the rank's heads; they,
+  ``mu`` and ``w_a`` (applied ahead of split products) take their
+  gradient summed over "model" (``distributed.sharding.materialize``). The
+  state ``S`` holds the rank's heads; ``last_x`` is whole.
+* channel-mix: the rules go by name, so its ``wv`` (d_ff, d) and ``wr``
+  (d, d) take attention's column rule, while ``wk`` (d, d_ff) splits d_ff.
+  ``wk``'s block gives this rank's d_ff block of k; ``wv`` arrives
+  all-gathered over "model" and the rank multiplies its d_ff rows: an f32
+  partial of k·wv, summed over "model" both ways (forward and gradient)
+  and rounded once. ``wr`` stays a column block: the rank's d/tp columns
+  of the output, gate times k·wv, sit in an otherwise zero f32 partial, so
+  the sublayer's boundary sum assembles the output exactly. Gathering
+  ``wv`` (d_ff·d weights) rather than k (B·L·d_ff activations) keeps one
+  product a rank over its own d_ff block.
 """
 
 from __future__ import annotations
@@ -20,7 +40,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ACC, chunk_pad, dense_init, matmul
+from repro_torch.distributed import collectives as coll
+from repro_torch.models.layers import (ACC, chunk_pad, dense_init, matmul, matmul_f32, out_proj,
+                                      sharder)
 
 W_LORA = 64
 
@@ -60,10 +82,22 @@ def _token_shift(x, last=None):
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def _block(w, lo: int, n: int):
+    """Entries lo..lo+n of the last dim (the rank's heads or channels)."""
+    return w if n == w.shape[-1] else w[..., lo:lo + n]
+
+
+def _heads(p, x) -> tuple:
+    """(first channel, channels) of this rank's heads of the time-mix."""
+    dl = p["wr"].shape[-1]
+    return (0 if dl == x.shape[-1] else sharder().block_start(dl, x.shape[-1])), dl
+
+
 def _tmix_inputs(p, x, cfg, last_x=None):
     B, L, d = x.shape
     hd = cfg.rwkv_head_dim
-    H = d // hd
+    lo, dl = _heads(p, x)
+    H = dl // hd
     xf = x.to(ACC)
     xprev = _token_shift(x, last_x).to(ACC)
     mu = p["mu"].to(ACC)
@@ -78,29 +112,38 @@ def _tmix_inputs(p, x, cfg, last_x=None):
     g = matmul(mix(3), p["wg"])
     # data-dependent decay (the Finch signature): w ∈ (0,1)
     lora = matmul(torch.tanh(matmul(mix(4), p["w_a"]).to(ACC)).to(x.dtype), p["w_b"]).to(ACC)
-    ww = p["w0"].to(ACC) + lora
+    ww = _block(p["w0"], lo, dl).to(ACC) + lora
     logw = -torch.exp(torch.clamp(ww, -10.0, 4.0))            # log-decay ≤ 0
     logw = torch.clamp(logw, -20.0, -1e-4).reshape(B, L, H, hd)
     return r.to(ACC), k.to(ACC), v.to(ACC), g, logw, x[:, -1]
 
 
 def _out_proj(p, wkv, g, cfg, x_dtype):
-    B, L = wkv.shape[:2]
+    B, L, H, hd = wkv.shape
     d = cfg.d_model
     # per-head group norm; the population variance, as jnp.var
     mean = torch.mean(wkv, -1, keepdim=True)
     var = torch.var(wkv, -1, keepdim=True, correction=0)
     wkv = (wkv - mean) * torch.rsqrt(var + 64e-5)
-    out = wkv.reshape(B, L, d) * p["ln_scale"].to(ACC)
+    lo = 0 if H * hd == d else sharder().block_start(H * hd, d)
+    out = wkv.reshape(B, L, H * hd) * _block(p["ln_scale"], lo, H * hd).to(ACC)
     out = out * F.silu(g.to(ACC))
-    return matmul(out.to(x_dtype), p["wo"])
+    return out_proj(out.to(x_dtype), p["wo"], d)
 
 
 def rwkv_tmix_apply(p, x, cfg, chunk=None):
     """Chunked-parallel WKV6. x: (B, L, D) → (B, L, D)."""
     r, k, v, g, logw, _ = _tmix_inputs(p, x, cfg)
-    o = wkv_chunked(r, k, v, logw, p["u"].to(ACC), chunk or cfg.rwkv_chunk)
+    o = wkv_chunked(r, k, v, logw, _u(p, x, cfg), chunk or cfg.rwkv_chunk)
     return _out_proj(p, o, g, cfg, x.dtype)
+
+
+def _u(p, x, cfg):
+    """The bonus ``u`` of this rank's heads, f32."""
+    lo, dl = _heads(p, x)
+    hd = cfg.rwkv_head_dim
+    u = p["u"]
+    return (u if dl == x.shape[-1] else u[lo // hd:(lo + dl) // hd]).to(ACC)
 
 
 def wkv_chunked(r, k, v, logw, u, chunk):
@@ -146,7 +189,7 @@ def rwkv_tmix_decode(p, x, cfg, state):
     """O(1) decode. state: {"S": (B,H,hd,hd) f32, "last_x": (B,D)}.
     Returns (out, new state); the state passed in is not changed."""
     r, k, v, g, logw, _ = _tmix_inputs(p, x, cfg, last_x=state["last_x"])
-    u = p["u"].to(ACC)
+    u = _u(p, x, cfg)
     S = state["S"]
     rk, kk, vk = r[:, 0], k[:, 0], v[:, 0]            # (B, H, hd)
     o = torch.einsum("bhd,bhde->bhe", rk, S) + \
@@ -158,9 +201,12 @@ def rwkv_tmix_decode(p, x, cfg, state):
 
 
 def rwkv_tmix_init_state(cfg, batch, dtype, device, repeats=None):
-    """Zero decode state; ``repeats`` adds a leading layer axis."""
+    """Zero decode state; ``repeats`` adds a leading layer axis. On a grid
+    this rank's heads."""
     hd = cfg.rwkv_head_dim
     H = cfg.d_model // hd
+    if sharder() is not None:
+        H = sharder().local_size(H)
     lead = () if repeats is None else (repeats,)
     return {"S": torch.zeros(lead + (batch, H, hd, hd), dtype=ACC, device=device),
             "last_x": torch.zeros(lead + (batch, cfg.d_model), dtype=dtype, device=device)}
@@ -182,8 +228,20 @@ def rwkv_cmix_apply(p, x, cfg, last_x=None):
     xk = (xf * (1 - mu[0]) + xprev * mu[0]).to(x.dtype)
     xr = (xf * (1 - mu[1]) + xprev * mu[1]).to(x.dtype)
     k = torch.square(torch.relu(matmul(xk, p["wk"]).to(ACC))).to(x.dtype)
-    return (torch.sigmoid(matmul(xr, p["wr"]).to(ACC))
-            * matmul(k, p["wv"]).to(ACC)).to(x.dtype)
+    fl = p["wk"].shape[-1]
+    if fl == cfg.d_ff:
+        return (torch.sigmoid(matmul(xr, p["wr"]).to(ACC))
+                * matmul(k, p["wv"]).to(ACC)).to(x.dtype)
+    # this rank's d_ff block of k against the rows of the gathered wv
+    sh = sharder()
+    B, L, d = x.shape
+    part = matmul_f32(k.reshape(-1, fl), p["wv"][sh.block_start(fl, cfg.d_ff):][:fl])
+    kv = coll.copy_to(coll.reduce_to(part, sh.model).to(x.dtype), sh.model).to(ACC)
+    dl = p["wr"].shape[-1]
+    c0 = sh.block_start(dl, d)
+    gate = torch.sigmoid(matmul(xr, p["wr"]).to(ACC))
+    cols = gate * kv.reshape(B, L, d)[..., c0:c0 + dl]
+    return F.pad(cols, (c0, d - c0 - dl))      # the f32 partial: zeros off its columns
 
 
 def rwkv_cmix_decode(p, x, cfg, state):

@@ -11,6 +11,17 @@ the reference's combine: log2(chunk) steps of whole-chunk tensor ops (four
 at jamba's chunk of 16), not one step a token. Its bracketing differs from
 XLA's, so it agrees with the reference to f32 rounding, not to the bit.
 ``mamba_reference`` runs the decode step token by token as the oracle.
+
+On a grid (the channel dims over "model") a rank runs its d_in/tp
+channels: ``conv_w``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and the
+states ``h``/``conv`` are blocks of them. ``in_proj`` (D, 2·d_in) arrives
+all-gathered over "model" (``distributed.sharding.materialize``), since its
+column block does not fall on the x/z split (over model 2, rank 0 would hold
+all of x and rank 1 all of z); the rank takes its channels of both halves.
+``x_proj`` is a row block: its (dt_rank + 2n) product is an f32 partial,
+summed over "model" and rounded once, with its gradient summed over "model"
+too (every rank's channels read the whole dt/B/C). ``out_proj`` is a row
+block: the mixer's output is an f32 partial (``layers.out_proj``).
 """
 
 from __future__ import annotations
@@ -18,7 +29,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ACC, chunk_pad, dense_init, matmul
+from repro_torch.distributed import collectives as coll
+from repro_torch.models.layers import (ACC, chunk_pad, dense_init, matmul, matmul_f32, out_proj,
+                                      sharder)
 
 
 def mamba_init(gen, cfg, dtype, repeats):
@@ -65,14 +78,39 @@ def _causal_conv(x, w, state=None):
     return out, new_state
 
 
+def _channels(p, cfg) -> tuple:
+    """(first channel, channels) of this rank's block of d_in, and d_in."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    dl = p["dt_bias"].shape[-1]
+    return (0 if dl == d_in else sharder().block_start(dl, d_in)), dl, d_in
+
+
+def in_proj_halves(p, cfg) -> tuple:
+    """The columns of ``in_proj`` that give this rank's channels of x and
+    of z."""
+    lo, dl, d_in = _channels(p, cfg)
+    w = p["in_proj"]
+    return w[..., lo:lo + dl], w[..., d_in + lo:d_in + lo + dl]
+
+
 def _ssm_inputs(p, x, cfg, conv_state=None):
     n = cfg.ssm_d_state
     dt_rank = max(cfg.d_model // 16, 1)
-    xz = matmul(x, p["in_proj"])
-    xs, z = torch.chunk(xz, 2, dim=-1)
+    _, dl, d_in = _channels(p, cfg)
+    if dl == d_in:
+        xz = matmul(x, p["in_proj"])
+        xs, z = torch.chunk(xz, 2, dim=-1)
+    else:
+        wx, wz = in_proj_halves(p, cfg)
+        xs, z = matmul(x, wx), matmul(x, wz)
     xs, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
     xs = F.silu(xs.to(ACC)).to(x.dtype)
-    xdb = matmul(xs, p["x_proj"])
+    if dl == d_in:
+        xdb = matmul(xs, p["x_proj"])
+    else:                                  # Σ over "model" both ways, in f32
+        model = sharder().model
+        part = matmul_f32(xs.reshape(-1, dl), p["x_proj"]).reshape(*xs.shape[:-1], -1)
+        xdb = coll.copy_to(coll.reduce_to(part, model), model).to(x.dtype)
     dt_r = xdb[..., :dt_rank]
     b_ssm = xdb[..., dt_rank:dt_rank + n].to(ACC)
     c_ssm = xdb[..., dt_rank + n:].to(ACC)
@@ -106,7 +144,7 @@ def mamba_apply(p, x, cfg):
     y = ssm_chunked(xs.to(ACC), dt, a, b_ssm, c_ssm, cfg.ssm_chunk)
     y = y + p["D"].to(ACC) * xs.to(ACC)
     y = y * F.silu(z.to(ACC))
-    return matmul(y.to(x.dtype), p["out_proj"])
+    return out_proj(y.to(x.dtype), p["out_proj"], cfg.ssm_expand * cfg.d_model)
 
 
 def ssm_chunked(xs, dt, a, b_ssm, c_ssm, chunk):
@@ -144,13 +182,16 @@ def mamba_decode(p, x, cfg, state):
     y = torch.einsum("bdn,bn->bd", h, c_ssm[:, 0])
     y = y + p["D"].to(ACC) * xs.to(ACC)[:, 0]
     y = y * F.silu(z.to(ACC)[:, 0])
-    out = matmul(y[:, None].to(x.dtype), p["out_proj"])
+    out = out_proj(y[:, None].to(x.dtype), p["out_proj"], cfg.ssm_expand * cfg.d_model)
     return out, {"h": h, "conv": new_conv}
 
 
 def mamba_init_state(cfg, batch, dtype, device, repeats=None):
-    """Zero decode state; ``repeats`` adds a leading layer axis."""
+    """Zero decode state; ``repeats`` adds a leading layer axis. On a grid
+    this rank's channels."""
     d_in = cfg.ssm_expand * cfg.d_model
+    if sharder() is not None:
+        d_in = sharder().local_size(d_in)
     lead = () if repeats is None else (repeats,)
     return {"h": torch.zeros(lead + (batch, d_in, cfg.ssm_d_state), dtype=ACC, device=device),
             "conv": torch.zeros(lead + (batch, cfg.ssm_conv_width - 1, d_in), dtype=dtype,

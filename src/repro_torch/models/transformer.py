@@ -25,7 +25,10 @@ summed over "model"; with sequence parallelism an all-gather over the
 sequence) and its partial output (f32, ``layers.out_proj``: summed over
 "model" in f32, with sequence parallelism reduce-scattered over the
 sequence, then rounded once to the residual's dtype). Off a grid both are
-the identity.
+the identity. A sublayer is split over "model" when this rank holds a block
+of its heads, hidden units, experts (MoE) or channels (Mamba, RWKV:
+``_split_over_model``); its recurrent caches then hold this rank's channels
+or heads (``cache_shardings``), prefill included.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import Group, ModelConfig, Sub
+from repro_torch.distributed.sharding import SPLITS
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
@@ -66,13 +70,13 @@ def shard_act(x, kind="seq", **kw):
 
 
 def _split_over_model(p, sub: Sub, cfg: ModelConfig) -> bool:
-    """Whether this rank holds a block of the sublayer's heads or hidden
-    units (its output is then a partial sum over "model")."""
-    if sub.kind == "attn":
-        return p["wq"].shape[-1] < cfg.n_heads * cfg.head_dim_
+    """Whether this rank holds a block of the sublayer's heads, hidden
+    units, experts or channels (its output is then a partial sum over
+    "model"): the mark leaf of ``distributed.sharding.SPLITS``."""
     if sub.kind == "mlp":
         return p["w_gate" if cfg.act == "swiglu" else "w_in"].shape[-1] < cfg.d_ff
-    return False
+    rule = SPLITS.get(sub.kind)
+    return rule is not None and p[rule.mark].shape[rule.dim] < rule.whole(cfg)
 
 
 def _normed(p, x, sub: Sub, cfg: ModelConfig):
@@ -362,6 +366,11 @@ def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len, memory=N
             if s.kind in RECURRENT:
                 x, state = _mixer_prefill(p, x, s, cfg)
                 for name, t in state.items():
+                    if t.shape != caches[key][name].shape[1:]:
+                        raise ValueError(f"a {s.kind} state {name} of {tuple(t.shape)} for a cache "
+                                         f"of {tuple(caches[key][name].shape[1:])}: serving on "
+                                         f"a grid needs tp_mode 'full' (ROADMAP.md Queue 1 item "
+                                         f"7b)")
                     caches[key][name][layer] = t
             else:
                 x, _ = sub_apply(p, x, s, cfg, memory=memory)
@@ -369,8 +378,9 @@ def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len, memory=N
 
 
 def _mixer_prefill(p, x, sub: Sub, cfg):
-    """Run the parallel path AND return the decode state at position L-1."""
-    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    """Run the parallel path AND return the decode state at position L-1
+    (on a grid, of this rank's channels or heads)."""
+    h, tp = _normed(p, x, sub, cfg)
     if sub.kind == "mamba":
         out = ssm_lib.mamba_apply(p, h, cfg)
         state = _mamba_state_after(p, h, cfg)
@@ -380,7 +390,7 @@ def _mixer_prefill(p, x, sub: Sub, cfg):
     else:  # rwkv_cmix
         out = rwkv_lib.rwkv_cmix_apply(p, h, cfg)
         state = {"last_x": h[:, -1]}
-    return x + out, state
+    return x + shard_act(out, "block_out", tp=tp).to(x.dtype), state
 
 
 def _mamba_state_after(p, x, cfg):
@@ -410,8 +420,13 @@ def _mamba_state_after(p, x, cfg):
     # conv tail: last K-1 pre-activation inputs (zero-extended left for
     # prompts shorter than the conv receptive field); the reference takes
     # this product with preferred_element_type=f32, then rounds
-    xz = matmul_f32(x.reshape(B * L, D), p["in_proj"], out_dtype=x.dtype).reshape(B, L, -1)
-    conv = xz[..., :d_in][:, -(K - 1):]
+    if d_in == cfg.ssm_expand * D:
+        xz = matmul_f32(x.reshape(B * L, D), p["in_proj"], out_dtype=x.dtype).reshape(B, L, -1)
+        conv = xz[..., :d_in][:, -(K - 1):]
+    else:                                        # this rank's channels
+        w = ssm_lib.in_proj_halves(p, cfg)[0]
+        conv = matmul_f32(x.reshape(B * L, D), w, out_dtype=x.dtype).reshape(B, L, -1)
+        conv = conv[:, -(K - 1):]
     if L < K - 1:
         conv = torch.cat([torch.zeros((B, K - 1 - L, d_in), dtype=conv.dtype,
                                       device=x.device), conv], dim=1)
@@ -423,8 +438,8 @@ def _rwkv_state_after(p, x, cfg):
     ``_mamba_state_after``."""
     B, L, d = x.shape
     hd = cfg.rwkv_head_dim
-    H = d // hd
     _, k, v, _, logw, _ = rwkv_lib._tmix_inputs(p, x, cfg)
+    H = k.shape[2]                               # this rank's heads on a grid
     C = min(cfg.rwkv_chunk, L)
     nc = L // C                                  # full chunks
 

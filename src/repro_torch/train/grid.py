@@ -8,10 +8,12 @@ it keeps its dp rows (``batch_shardings``). The forward reads
 ``sharding.materialize``'s tensors, so the gradient reductions are the
 backward of its gathers: a dp-sharded leaf's gradient is reduce-scattered
 over dp, a dp-replicated leaf's summed over dp; leaves that every rank of
-"model" applies to its own heads, and the norms under sequence
+"model" applies to its own heads or channels, and the norms under sequence
 parallelism, have theirs summed over "model". Each rank's loss is its rows'
 token sum over the global token count, so the sums over dp give the mean
-over the global batch.
+over the global batch; the MoE aux loss is global on every rank (its sums
+over dp run inside ``models.moe``, whose backward is the identity) and
+enters each rank's objective whole.
 
 The update is elementwise and each optimizer leaf co-shards with its
 parameter, so every rank updates its blocks alone. SR draws each element's
@@ -21,10 +23,28 @@ The metrics' raw partials (⟨Δθ,Δθ̂⟩, ‖Δθ‖², ‖Δθ̂‖², #los
 kernel on the blocks) are summed over the grid with each leaf counted once:
 a leaf replicated over an axis only on that axis' rank 0.
 
-Families on the grid: the dense ones (gpt-*, granite, internlm2,
-codeqwen, gemma3 with its tied head and local:global windows), on the
-tree layout. MoE, the recurrent mixers, the frontends and the bucketed
-layout raise at build (``check_grid``); their specs are ported whole.
+The bucketed layout (``opt.policy.bucketing.enabled``) follows the
+reference's ``bucket_spec``: every flat bucket, parameters and each
+optimizer role, is sharded over dp and replicated over "model" (ZeRO-3
+style). A step all-gathers each bucket over dp, takes each leaf's "model"
+block as the tree step holds it, and runs the same forward; after the
+backward each model rank reduce-scatters its partial bucket gradient over
+dp (a split leaf's block at its place with zeros elsewhere; a leaf
+replicated over "model" counted from model rank 0 only, its gradient being
+whole on every rank), sums the shard over "model" (disjoint parts: exact in
+the bucket's dtype, and the same numbers as summing first over "model",
+for 1/n_dp of the bytes) and updates its shard with one fused
+``collage_update`` a bucket, ``elem_offsets`` the shard's start in the
+bucket: the ZeRO update of ``train.sharded``, so SR is the one-rank
+bucketed update bit for bit. The
+metric partials count once a grid: each dp shard on model rank 0.
+
+Families on the grid: the dense ones, the MoE ones (expert parallelism:
+``models.moe``), the recurrent ones (RWKV6 and jamba's Mamba + attention +
+MoE stack, their channel dims over "model": ``models.rwkv``,
+``models.ssm``), on the tree and the bucketed layouts. The frontends
+(encoder-decoder, VLM) raise at build (``check_grid``); their specs are
+ported whole.
 """
 
 from __future__ import annotations
@@ -40,34 +60,50 @@ from repro_torch.core.precision import Strategy
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.collage_update import ops as kops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
-from repro_torch.models.model import Model, param_dict
+from repro_torch.models.model import AUX_LOSS_COEF, Model, param_dict
 
 F32 = torch.float32
 ITEM = "ROADMAP.md Queue 1 item 7b"
 
-
-def check_grid(cfg: ModelConfig, grid, tp_mode: str = "full", bucketed: bool = False):
-    """Raise for what the grid does not run yet; the message names the
-    family and the roadmap item that ports it."""
-    kinds = {s.kind for g in cfg.decoder_program() for s in g.period}
+def check_grid(cfg: ModelConfig, grid, tp_mode: str = "full", bucketed: bool = False,
+               fsdp: bool = True):
+    """Raise for what the grid does not run; the message names the family
+    and the roadmap item that ports it, or the leaf whose block cannot be
+    used."""
     name = cfg.name
-    if "moe" in kinds:
-        raise ValueError(f"{name}: MoE on a grid (the we_* expert dim over 'model', expert "
-                         f"parallelism) is not ported yet ({ITEM})")
-    if kinds & set(tf.RECURRENT):
-        raise ValueError(f"{name}: the Mamba/RWKV channel dims over 'model' on a grid are not "
-                         f"ported yet ({ITEM})")
     if cfg.is_encdec or cfg.family == "vlm":
         raise ValueError(f"{name}: the frontends' encoder and cross-attention on a grid are not "
                          f"ported yet ({ITEM})")
-    if bucketed:
-        raise ValueError(f"{name}: the bucketed layout on a grid is not ported yet ({ITEM}); "
-                         f"over dp ranks alone, train.sharded's ZeRO engine shards the buckets")
+    if bucketed and not fsdp:
+        raise ValueError(f"{name}: the bucketed layout on a grid shards its buckets over dp "
+                         f"(bucket_spec); fsdp=False is not ported ({ITEM})")
     tp, dh = grid.tp, cfg.head_dim_
     if tp_mode == "full" and tp > 1 and (cfg.n_heads * dh) % tp == 0 and cfg.n_heads % tp:
         raise ValueError(f"{name}: {cfg.n_heads} query heads over model {tp} would split a head; "
                          f"tp_mode='mlponly' keeps attention whole")
+    meta = param_dict(Model(cfg).init(device="meta"))
+    specs = dict(sh.named_leaves(sh.state_shardings(meta, grid, fsdp, tp_mode)))
+    shapes = {p: tuple(x.shape) for p, x in sh.named_leaves(meta)}
+    subs: dict = {}
+    for path in specs:
+        subs.setdefault(path[:path.rfind("[")], []).append(path)
+    for parent, paths in subs.items():
+        names = {sh._last_name(q): q for q in paths}
+        kind = sh.sublayer_kind(names)
+        if kind is None:
+            continue
+        mark = names[sh.SPLITS[kind].mark]
+        split = "model" in specs[mark]
+        for leaf in sh.SPLITS[kind].together:
+            if ("model" in specs[names[leaf]]) != split:
+                raise ValueError(f"{name}: {names[leaf]} is {'whole' if split else 'split'} over "
+                                 f"model {tp} while {mark} is {'split' if split else 'whole'}: "
+                                 f"this rank's block cannot be used")
+        if kind == "rwkv_tmix" and split and (shapes[mark][-1] // tp) % cfg.rwkv_head_dim:
+            raise ValueError(f"{name}: {mark}: a block of {shapes[mark][-1] // tp} columns over "
+                             f"model {tp} splits a head of {cfg.rwkv_head_dim}")
 
 
 def shard_state(state, grid, fsdp: bool = True, tp_mode: str = "full"):
@@ -89,12 +125,14 @@ def _rebuild(tree, leaves):
 def make_grid_train_step(model: Model, opt: CollageAdamW, grid, *, fsdp: bool = True,
                          tp_mode: str = "full", sp: bool = False) -> Callable:
     """``step(state, batch) → (state, metrics)`` on ``grid``: ``state`` this
-    rank's blocks, ``batch`` the global batch; the metrics are the global
-    ones (0-dim tensors). ``sp``: sequence parallelism (when L divides
-    "model")."""
+    rank's blocks (of a tree or a bucketed TrainState), ``batch`` the global
+    batch; the metrics are the global ones (0-dim tensors). ``sp``:
+    sequence parallelism (when L divides "model")."""
     cfg = model.cfg
-    check_grid(cfg, grid, tp_mode, opt.policy.bucketing.enabled)
-    if opt.use_fused_kernel and opt.policy.strategy is Strategy.SR and grid.size > 1:
+    bucketed = opt.policy.bucketing.enabled
+    check_grid(cfg, grid, tp_mode, bucketed, fsdp)
+    if opt.use_fused_kernel and opt.policy.strategy is Strategy.SR and grid.size > 1 \
+            and not bucketed:
         raise ValueError(SR_FUSED_BLOCKS)
     sharder = sh.make_activation_sharder(grid, sp)
     shapes = param_dict(model.init(device="meta"))
@@ -105,30 +143,93 @@ def make_grid_train_step(model: Model, opt: CollageAdamW, grid, *, fsdp: bool = 
               if any(s) else None for x, s in zip(whole, specs)]
     owned = [sh.owned(s, grid) for s in specs]
     total = sum(x.numel() for x in whole)
-    dp, world = grid.axis("dp"), grid.axis("world")
+    dp, model_ax, world = grid.axis("dp"), grid.axis("model"), grid.axis("world")
+    has_moe = any(s.kind == "moe" for g in cfg.decoder_program() for s in g.period)
+    # the bucketed layout: each leaf's "model" block (the dp entries dropped)
+    tspecs = sh.map_leaves(lambda path, s: sh.P(*("model" if "model" in sh._names(e) else None
+                                                   for e in s)), pspecs)
+    tflat = dict(sh.named_leaves(tspecs))
+    if bucketed and opt.policy.bucketing.pad_multiple % grid.n_dp:
+        raise ValueError(f"bucket pad_multiple {opt.policy.bucketing.pad_multiple} must be a "
+                         f"multiple of the {grid.n_dp} dp ranks: build the BucketPolicy with "
+                         f"sharding.bucket_pad_multiple")
 
-    def grads_of(params, batch):
-        bspec = sh.batch_shardings(batch, grid)
-        local = sh.local_tree(batch, bspec, grid)
-        rows_split = bool(bspec["tokens"] and bspec["tokens"][0])
-        leaves = [x.detach().requires_grad_(True) for _, x in sh.named_leaves(params)]
+    def loss_grads(params, leaves, batch, over_dp: bool):
+        """(ce summed over dp, aux, autograd gradients of ``leaves``) of this
+        rank's objective over the materialised ``params``."""
+        local = sharder.local_batch(batch)
+        rows_split = bool(sharder.rows_split)
+        if has_moe:
+            moe_lib.check_groups(cfg, local["tokens"].numel(), grid.n_dp if rows_split else 1)
         with torch.enable_grad(), tf.activation_sharding(sharder):
             sharder.begin_seq(local["tokens"].shape[1])
-            compute = sh.materialize(_rebuild(params, leaves), pspecs, grid, cfg.head_dim_)
+            compute = sh.materialize(params, pspecs if over_dp else tspecs, grid, cfg.head_dim_,
+                                     over_dp=over_dp)
             loss, lm = model.loss(compute, local)
             if rows_split:           # this rank's token sum over the global token count
                 n = (local["labels"][..., 1:] >= 0).sum().to(F32)
                 scale = n / torch.clamp_min(coll.psum(n, dp, role="metric"), 1.0)
+                # the aux loss is the global one on every rank (its backward
+                # leaves each rank its rows' part, summed over dp below)
+                objective = lm["ce"] * scale + AUX_LOSS_COEF * lm["aux"]
             else:                    # every dp rank holds the whole batch
                 scale = torch.tensor(1.0 / grid.n_dp, dtype=F32, device=loss.device)
-            grads = torch.autograd.grad(loss * scale, leaves, allow_unused=True)
+                objective = loss * scale
+            grads = torch.autograd.grad(objective, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
         ce = coll.psum((lm["ce"] * scale).detach(), dp, role="metric")
-        return ce, _rebuild(params, grads)
+        return ce, lm["aux"].detach(), grads
+
+    def grads_of(params, batch):
+        """(the global (ce, aux) as one f32 tensor of 2, the gradient of this
+        rank's blocks)."""
+        if bucketed:
+            return _bucket_grads(params, batch)
+        leaves = [x.detach().requires_grad_(True) for _, x in sh.named_leaves(params)]
+        ce, aux, grads = loss_grads(_rebuild(params, leaves), leaves, batch, True)
+        return torch.stack([ce, aux]), _rebuild(params, grads)
+
+    def _bucket_grads(params: bucketing.BucketedParams, batch):
+        """The bucket shards' gradient: buckets gathered over dp, each leaf's
+        "model" block; each model rank's partial bucket gradient (its blocks
+        at their places, zeros elsewhere; replicated leaves from model rank
+        0 only) reduce-scattered over dp, then its shard summed over
+        "model". The sums commute exactly (at each element at most one model
+        rank's part is nonzero), so the order moves 1/n_dp of the bucket
+        over "model" for the same numbers."""
+        layout = params.layout
+        leaves = [coll.all_gather(d, dp, role="fsdp_gather").detach().requires_grad_(True)
+                  for d in params.data]
+        with torch.enable_grad():
+            tree = sh.local_tree(bucketing.unbucket(leaves, layout), tspecs, grid)
+        ce, aux, grads = loss_grads(tree, leaves, batch, False)
+        del tree, leaves
+        replicated = [[] for _ in layout.buckets]          # leaves whole on every model rank
+        for slot in layout.slots:
+            if "model" not in tflat[slot.name]:
+                replicated[slot.bucket].append((slot.offset, slot.size))
+        out = []
+        for b in range(len(grads)):
+            g, grads[b] = grads[b], None
+            if model_ax.rank:                 # replicated leaves count from model rank 0
+                for off, size in replicated[b]:
+                    g[off:off + size] = 0
+            g = coll.psum_scatter(g, dp, role="fsdp_scatter")
+            out.append(coll.sum_disjoint(g, model_ax, role="tp_reduce"))
+            del g
+        return torch.stack([ce, aux]), bucketing.BucketedParams(tuple(out), layout)
 
     def update(state, grads):
         """The optimizer on this rank's blocks → (params, opt_state, the
         summed raw metric partials of the leaves this rank counts)."""
+        if bucketed:
+            n = grid.n_dp
+            offs = tuple(dp.rank * (b.padded // n) for b in state.params.layout.buckets)
+            params, ost, parts = opt.step_bucketed(grads, state.params, state.opt_state,
+                                                   metrics_partials=True, elem_offsets=offs)
+            if model_ax.rank:                 # each dp shard counts on model rank 0
+                parts = kops._zeros5(parts[0].device)
+            return params, ost, parts
         if not opt.use_fused_kernel:
             params, ost, parts = opt.step(grads, state.params, state.opt_state,
                                           metrics_partials=True, blocks=blocks)
@@ -136,20 +237,23 @@ def make_grid_train_step(model: Model, opt: CollageAdamW, grid, *, fsdp: bool = 
                                                   parts[0][0].device)
         return _fused_update(opt, grads, state.params, state.opt_state, owned)
 
-    def finish(ce, parts) -> dict:
-        """The global metrics from the loss and this rank's counted partials."""
+    def finish(losses, parts, n_params: int = total) -> dict:
+        """The global metrics from ``grads``' (ce, aux) and this rank's
+        counted partials."""
         tot = coll.psum(torch.stack([p.to(F32) for p in parts]), world, role="metric")
-        om = kops.finalize_metrics(tuple(tot), total)
-        zero = torch.zeros((), dtype=F32, device=ce.device)
-        return {"loss": ce, "ce": ce, "aux": zero, "ppl": torch.exp(ce), "edq": om.edq,
+        om = kops.finalize_metrics(tuple(tot), n_params)
+        ce, aux = losses[0], losses[1]
+        loss = ce + AUX_LOSS_COEF * aux
+        return {"loss": loss, "ce": ce, "aux": aux, "ppl": torch.exp(ce), "edq": om.edq,
                 "update_norm": om.update_norm, "imprecision_pct": om.imprecision_pct,
                 "grad_norm": om.grad_norm}
 
     def step(state, batch):
         from repro_torch.train.train_loop import TrainState
-        ce, grads = grads_of(state.params, batch)
+        losses, grads = grads_of(state.params, batch)
         params, opt_state, parts = update(state, grads)
-        return TrainState(params, opt_state, None), finish(ce, parts)
+        n = state.params.layout.total_size if bucketed else total
+        return TrainState(params, opt_state, None), finish(losses, parts, n)
 
     step.grads, step.update, step.finish = grads_of, update, finish
     step.specs = pspecs

@@ -106,6 +106,45 @@ def test_audit_runs_with_jax_unimportable(tmp_path):
     assert "AUDIT_WITHOUT_JAX_OK" in out.stdout
 
 
+def test_moe_grid_step_runs_with_jax_unimportable():
+    """An MoE grid step (qwen3-moe smoke on the one-rank grid: the expert
+    dispatch, the aux loss through the grid's loss) with JAX made
+    unimportable equals the plain step."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "ml_dtypes", "repro"):
+            sys.modules[name] = None
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.core.collage import CollageAdamW
+        from repro_torch.data.synthetic import make_batch_fn
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.models.model import build_model
+        from repro_torch.train import grid as grid_lib, train_loop
+        cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+        model = build_model(cfg)
+        opt = CollageAdamW(1e-3, compute_metrics=True)
+        g = mesh_lib.make_mesh(1, 1, device="cpu")
+        batch = make_batch_fn(cfg, ShapeConfig("t", 16, 2, "train"), device="cpu")(0)
+        s0 = train_loop.init_state(model, opt, 0, device="cpu")
+        s1, m1 = train_loop.make_train_step(model, opt)(s0, batch)
+        s2, m2 = train_loop.make_train_step(model, opt, grid=g)(grid_lib.shard_state(s0, g), batch)
+        assert all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(sh.named_leaves(s1.params), sh.named_leaves(s2.params)))
+        assert float(m1["aux"]) == float(m2["aux"]) > 0, (m1, m2)
+        assert float(m1["loss"]) == float(m2["loss"]), (m1, m2)
+        print("MOE_GRID_WITHOUT_JAX_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr}"
+    assert "MOE_GRID_WITHOUT_JAX_OK" in out.stdout
+
+
 def test_grid_runs_with_jax_unimportable():
     """The grid (``launch.mesh``, ``distributed.sharding``, the grid train
     step, the legacy ``pipeline_apply``) with JAX made unimportable: a
