@@ -31,6 +31,7 @@ bucket's mean and residual are the same either way. The collectives are
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -181,6 +182,85 @@ def compress_tree(grads: Any, err_state: Optional[Any], dtype=torch.bfloat16):
         deq, r = compress_decompress(g, e, dtype)
         qs.append(deq.to(g.dtype))
         es.append(r)
+    return bucketing.tree_unflatten(skel, qs), bucketing.tree_unflatten(skel, es)
+
+
+# --------------------------------------------------------------------------
+# the local round trip on a grid rank's blocks of the global gradient
+# --------------------------------------------------------------------------
+
+_CHUNK_ELEMS = 1 << 22           # elements a pass over a block takes at once
+
+
+def _block_chunks(g: torch.Tensor, block):
+    """(rows slice, the BLOCK index in the whole leaf's flat order of every
+    element of those rows of ``g``), over chunks of ``g``'s dim 0.
+    ``block``: None (``g`` is the whole leaf) or (whole shape, start per
+    dim) of the block ``g`` is."""
+    whole, starts = (tuple(g.shape), (0,) * g.dim()) if block is None else block
+    if g.dim() == 0:
+        yield ..., torch.zeros((), dtype=torch.int64, device=g.device)
+        return
+    strides = [math.prod(whole[d + 1:]) for d in range(len(whole))]
+    inner = torch.zeros((), dtype=torch.int64, device=g.device)
+    for d in range(1, g.dim()):
+        idx = (torch.arange(g.shape[d], device=g.device) + starts[d]) * strides[d]
+        inner = inner[..., None] + idx
+    rows = max(1, _CHUNK_ELEMS // max(1, inner.numel()))
+    for r0 in range(0, g.shape[0], rows):
+        r1 = min(g.shape[0], r0 + rows)
+        head = (torch.arange(r0, r1, device=g.device) + starts[0]) * strides[0]
+        yield slice(r0, r1), torch.div(head.reshape((-1,) + (1,) * (g.dim() - 1)) + inner,
+                                       BLOCK, rounding_mode="floor")
+
+
+def compress_blocks(grads: Any, err_tree: Optional[Any], dtype, blocks: Sequence,
+                    axis: Optional[coll.Axis]):
+    """``compress_tree``'s local round trip of the global gradient, on a
+    rank's blocks of its leaves (``blocks``: per leaf in leaf order, None
+    for a leaf the rank holds whole, else (whole shape, start per dim))
+    → (the blocks in each leaf's dtype, their residuals): the one-rank
+    round trip of each whole leaf restricted to the block, bit for bit.
+
+    bf16 rounds element by element. fp8 scales each BLOCK of a whole
+    leaf's flat order by that block's amax, and a rank's block cuts
+    through those blocks, so each rank takes the amax of its part of every
+    block, the parts meet in one MAX all-reduce over ``axis`` (every leaf at
+    once; ranks holding no part give 0), and each element is quantized by
+    its block's scale as the one-rank round trip quantizes it."""
+    if not is_fp8(dtype):
+        return compress_tree(grads, err_tree, dtype)
+    flat, skel = bucketing.tree_flatten_with_path(grads)
+    gs = [g for _, g in flat]
+    errs = bucketing.tree_leaves(err_tree) if err_tree is not None else [None] * len(gs)
+    blocks = list(blocks)
+    dev = gs[0].device
+    g32s = [_with_err(g, e) for g, e in zip(gs, errs)]
+    nbs = [-(-math.prod(b[0] if b is not None else g.shape) // BLOCK) for g, b in zip(gs, blocks)]
+    amax = torch.zeros(sum(nbs), dtype=F32, device=dev)
+    starts = np.cumsum([0] + nbs[:-1]).tolist()
+    for g32, b, n0, nb in zip(g32s, blocks, starts, nbs):
+        part = amax[n0:n0 + nb]
+        for rows, ids in _block_chunks(g32, b):
+            part.scatter_reduce_(0, ids.reshape(-1), g32[rows].abs().reshape(-1), "amax")
+    amax = coll.pmax(amax, axis, role="amax")
+    gmax = _FP8_GRID_MAX[dtype]
+    f = mcf.fpu(dtype)
+    qs, es = [], []
+    for g, g32, b, n0, nb in zip(gs, g32s, blocks, starts, nbs):
+        scale = fp8_scale(amax[n0:n0 + nb], dtype)
+        deq = torch.empty_like(g32)
+        res = torch.empty_like(g32)
+        for rows, ids in _block_chunks(g32, b):
+            s_e = scale[ids]
+            x = g32[rows]
+            q32 = torch.clamp(f.rn(x / s_e), -gmax, gmax)
+            payload = f.store(q32)
+            deq[rows] = q32 * s_e
+            res[rows] = (x.to(torch.float64) - payload.to(torch.float64)
+                         * s_e.to(torch.float64)).to(F32)
+        qs.append(deq.to(g.dtype))
+        es.append(res.to(residual_dtype(dtype, g.dtype)))
     return bucketing.tree_unflatten(skel, qs), bucketing.tree_unflatten(skel, es)
 
 

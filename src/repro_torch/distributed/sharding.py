@@ -34,10 +34,12 @@ bucket shards along its single axis over the dp ranks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
 import re
+import weakref
 from typing import Optional
 
 import torch
@@ -453,7 +455,8 @@ def sublayer_kind(names) -> Optional[str]:
     return None
 
 
-def materialize(params, specs, grid, head_dim: int, over_dp: bool = True):
+def materialize(params, specs, grid, head_dim: int, over_dp: bool = True,
+                per_layer: bool = False):
     """The tensors a rank's forward reads, from its parameter blocks, with
     autograd to the blocks: each dp-sharded dim all-gathered over dp (its
     gradient reduce-scattered) and each dp-replicated leaf's gradient
@@ -475,7 +478,20 @@ def materialize(params, specs, grid, head_dim: int, over_dp: bool = True):
       rows of this rank's d_ff block, ``models.rwkv``).
 
     MoE needs nothing here: its experts are a block of the expert dim, and
-    the router's sums happen in ``models.moe``."""
+    the router's sums happen in ``models.moe``.
+
+    ``per_layer`` (FSDP's just-in-time gathers): a leaf whose chain gathers
+    is not gathered here. A layer stack becomes a ``DeferredStack``, whose
+    layer i is gathered from the rank's block when the forward takes it
+    (``models.transformer.layer_params``), inside a rematerialised layer's
+    body, so that the recompute gathers again; the embedding and the head
+    become a ``Deferred``, gathered where the model uses them
+    (``resolve``). Leaves whose chain gathers nothing (norms, replicated
+    leaves) are taken whole as without it. The gathers, sums and their
+    numbers are the same either way. The train step takes it (a layer's
+    gathered weights live for its forward and its backward only); serving
+    does not (a prefill and its decode steps read the same gathered
+    weights, gathered once)."""
     by_path = dict(named_leaves(specs))
     siblings: dict = {}
     for path in by_path:
@@ -485,34 +501,161 @@ def materialize(params, specs, grid, head_dim: int, over_dp: bool = True):
     def split(parent: str, kind: str) -> bool:
         return "model" in by_path.get(f"{parent}[{SPLITS[kind].mark!r}]", P())
 
-    def one(path, x):
-        spec = _pad(_spec_of(by_path, path), x.dim())
+    def plan(path, spec, shape) -> list:
+        """The collectives of a leaf (or a layer of it) of ``shape`` under
+        ``spec``: ("gather", axis, dim, role, back_role) or ("copy", axis,
+        role)."""
+        ops = []
         if over_dp:
             dp_dims = [d for d, e in enumerate(spec)
                        if _names(e) and set(_names(e)) <= {"pod", "data"}]
-            for d in dp_dims:
-                x = coll.all_gather_dim(x, dp, d)
+            ops += [("gather", dp, d, "fsdp_gather", "fsdp_scatter") for d in dp_dims]
             if not dp_dims:
-                x = coll.copy_to(x, dp, role="grad")
+                ops.append(("copy", dp, "grad"))
         name = _last_name(path)
         parent = path[:path.rfind("[")]
         kind = sublayer_kind(siblings.get(parent, ()))
         if kind is None or not split(parent, kind):
-            return x
+            return ops
+        last = len(shape) - 1
+        tp_gather = [("gather", model, last, "tp_gather", "tp_scatter")]
         if kind == "attn":
-            if name == "wq" and x.shape[-1] % head_dim:
-                raise ValueError(f"{path}: a block of {x.shape[-1]} query columns splits a head "
+            if name == "wq" and shape[-1] % head_dim:
+                raise ValueError(f"{path}: a block of {shape[-1]} query columns splits a head "
                                  f"of {head_dim}; tp_mode='mlponly' keeps attention whole")
-            if name in ("wk", "wv") and "model" in spec and x.shape[-1] % head_dim:
-                return coll.all_gather_dim(x, model, x.dim() - 1, "tp_gather", "tp_scatter")
+            if name in ("wk", "wv") and "model" in spec and shape[-1] % head_dim:
+                return ops + tp_gather
             if name in ("wk", "wv") and "model" not in spec:
-                return coll.copy_to(x, model)
+                return ops + [("copy", model, "tp_reduce")]
         if name in SPLITS[kind].summed:
-            return coll.copy_to(x, model)
+            return ops + [("copy", model, "tp_reduce")]
         if name in SPLITS[kind].gathered and "model" in spec:
-            return coll.all_gather_dim(x, model, x.dim() - 1, "tp_gather", "tp_scatter")
+            return ops + tp_gather
+        return ops
+
+    def run(ops, x):
+        for op in ops:
+            if op[0] == "gather":
+                x = coll.all_gather_dim(x, *op[1:])
+            else:
+                x = coll.copy_to(x, op[1], role=op[2])
         return x
+
+    def one(path, x):
+        spec = _pad(_spec_of(by_path, path), x.dim())
+        ops = plan(path, spec, tuple(x.shape))
+        gathers = any(op[0] == "gather" for op in ops)
+        if per_layer and gathers and "['groups']" in path:      # a layer stack: dim 0 whole
+            lops = plan(path, spec[1:], tuple(x.shape[1:]))
+            return DeferredStack(x, functools.partial(run, lops))
+        if per_layer and gathers and _last_name(path) in ("embed", "lm_head"):
+            return Deferred(x, functools.partial(run, ops))
+        return run(ops, x)
     return map_leaves(one, params)
+
+
+# ------------------------------------------------- FSDP's deferred gathers
+class Deferred:
+    """A parameter a rank gathers where its forward uses it (``get()``:
+    ``materialize``'s collectives on the rank's block, with autograd to
+    it): the embedding and the head under ``materialize(per_layer=True)``.
+    Each ``get()`` gathers anew; the model drops the result after use."""
+
+    def __init__(self, block: torch.Tensor, fn):
+        self.block, self._fn = block, fn
+
+    @property
+    def device(self) -> torch.device:
+        return self.block.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.block.dtype
+
+    def get(self) -> torch.Tensor:
+        return self._fn(self.block)
+
+
+def resolve(x):
+    """A parameter as a tensor: a ``Deferred`` is gathered here."""
+    return x.get() if isinstance(x, Deferred) else x
+
+
+# id(root of a gathered layer tensor) → (weakref to it, the zero-argument
+# function that gathers it again)
+_GATHERED: dict = {}
+
+
+def _forget(key, ref):
+    if _GATHERED.get(key, (None,))[0] is ref:
+        del _GATHERED[key]
+
+
+def _root(t: torch.Tensor) -> torch.Tensor:
+    return t if t._base is None else t._base
+
+
+def _regather(fn, x):
+    with torch.no_grad():
+        return fn(x.detach())
+
+
+class DeferredStack:
+    """A stacked layer leaf whose layers are gathered one at a time:
+    ``stack[i]`` runs ``materialize``'s collectives on layer i of the rank's
+    block (a view: ``unbind``, whose backward stacks the layers' gradients
+    once, each already reduce-scattered when its layer's backward ended)
+    and registers the result, so that ``regather_saved`` can save it as a
+    key and gather it again in the backward."""
+
+    def __init__(self, block: torch.Tensor, fn):
+        self.block, self._fn = block, fn
+        self._layers = block.unbind(0)
+
+    def __len__(self) -> int:
+        return len(self._layers)
+
+    def __getitem__(self, layer: int) -> torch.Tensor:
+        x = self._layers[layer]
+        out = self._fn(x)
+        root = _root(out)
+        key = id(root)
+        ref = weakref.ref(root, lambda r, k=key: _forget(k, r))
+        _GATHERED[key] = (ref, functools.partial(_regather, self._fn, x))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class _Regathered:
+    """A saved gathered tensor, kept as the way to gather it again."""
+    fn: object
+    size: tuple
+    stride: tuple
+    offset: int
+
+
+def _pack(t: torch.Tensor):
+    root = _root(t)
+    entry = _GATHERED.get(id(root))
+    if entry is None or entry[0]() is not root:
+        return t
+    return _Regathered(entry[1], tuple(t.size()), t.stride(), t.storage_offset())
+
+
+def _unpack(p):
+    if not isinstance(p, _Regathered):
+        return p
+    return _root(p.fn()).as_strided(p.size, p.stride, p.offset)
+
+
+def regather_saved():
+    """Saved-tensor hooks for a layer run without rematerialisation: a
+    tensor autograd saves that is (a view of) a ``DeferredStack`` layer's
+    gathered result is saved as the way to gather it, and gathered again
+    when the backward unpacks it, so the gathered layer is freed after its
+    forward. Every rank unpacks in the same order (the same graph), so the
+    collectives of the backward match."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
 
 
 class GridSharder:
@@ -552,6 +695,7 @@ class GridSharder:
         self.data = grid.axis("data")
         self.tp = grid.tp
         self.seq = False
+        self.mem_seq = False
         self.rows_split = None
 
     @property
@@ -590,6 +734,19 @@ class GridSharder:
         """Sequence parallelism for a train forward of ``length`` tokens."""
         self.seq = self.sp and self.tp > 1 and length % self.tp == 0
 
+    @contextlib.contextmanager
+    def encoder(self, length: int):
+        """The encoder's forward over ``length`` frames: sequence
+        parallelism by its own length, which its output (the memory the
+        cross-attention reads, ``kind="memory"``) keeps."""
+        seq = self.seq
+        self.begin_seq(length)
+        self.mem_seq = self.seq
+        try:
+            yield
+        finally:
+            self.seq = seq
+
     def __call__(self, x, kind="seq", tp: bool = False):
         m = self.model
         if kind == "seq":                  # the residual stream after the embedding
@@ -605,6 +762,11 @@ class GridSharder:
             return coll.reduce_to(x, m) if tp else x
         if kind == "norm":                 # a norm weight applied to this rank's tokens
             return coll.copy_to(x, m) if self.seq else x
+        if kind == "memory":               # the encoder's output into a cross-attention
+            if self.mem_seq:
+                return coll.all_gather_dim(x, m, 1, "sp_gather", "sp_scatter") if tp \
+                    else coll.gather_rep_dim(x, m, 1)
+            return coll.copy_to(x, m) if tp else x
         raise ValueError(f"shard_act kind {kind!r}")
 
     # ------------------------------------------------ vocab-parallel parts

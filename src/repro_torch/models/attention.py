@@ -366,7 +366,8 @@ def cross_kv(p, memory, cfg):
     """Cross-attention K/V of the encoder's memory (B, F, D), computed once
     at prefill: {"k", "v"} (B, F, Hk, dh), no rotary embedding."""
     B, F, _ = memory.shape
-    hk, dh = cfg.n_kv_heads, cfg.head_dim_
+    dh = cfg.head_dim_
+    hk = p["wk"].shape[-1] // dh                     # this rank's heads on a grid
     k = matmul(memory, p["wk"]).reshape(B, F, hk, dh)
     v = matmul(memory, p["wv"]).reshape(B, F, hk, dh)
     if cfg.qk_norm:
@@ -379,12 +380,13 @@ def cross_decode(p, x, cfg, cache):
     rotary embedding and no mask (every query sees the whole memory), so
     it takes any L: one decode token or a verify step's k+1."""
     B, L, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim_
-    q = matmul(x, p["wq"]).reshape(B, L, h, dh)
+    dh = cfg.head_dim_
+    q = matmul(x, p["wq"]).reshape(B, L, p["wq"].shape[-1] // dh, dh)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-    probs = torch.softmax(_gqa_scores(q, cache["k"], cfg), dim=-1)
-    out = _gqa_out(probs, cache["v"], cfg, x.dtype)
+    k, v = _local_kv(q, cache["k"], cache["v"], cfg)
+    probs = torch.softmax(_gqa_scores(q, k, cfg), dim=-1)
+    out = _gqa_out(probs, v, cfg, x.dtype)
     return out_proj(out, p["wo"], cfg.n_heads * cfg.head_dim_)
 
 

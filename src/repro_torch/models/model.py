@@ -60,6 +60,7 @@ nothing back to the host; the engine reads once a segment or round.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -70,6 +71,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bucketing import BucketedParams
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.sharding import resolve
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (ACC, dense_init, embed_lookup, matmul_f32, rms_norm,
                                       rms_norm_init, sharder)
@@ -310,7 +312,7 @@ class Model:
     def _head(self, params, x):
         cfg = self.cfg
         x = rms_norm(x, tf.shard_act(params.decoder.final_norm, "norm"), cfg.norm_eps)
-        w = params.embed.T if cfg.tie_embeddings else params.lm_head
+        w = resolve(params.embed).T if cfg.tie_embeddings else resolve(params.lm_head)
         x = tf.shard_act(x, "block_in", tp=w.shape[-1] < cfg.vocab_size)
         logits = matmul_f32(x.reshape(-1, x.shape[-1]), w)     # fp32
         return logits.reshape(*x.shape[:-1], w.shape[-1])
@@ -346,19 +348,24 @@ class Model:
     def _encode(self, params, frontend):
         """The encoder stack over the frontend embeddings (in the model
         dtype): the memory (B, F, D) the cross-attention reads, or None for
-        an arch without an encoder."""
+        an arch without an encoder. On a grid with sequence parallelism the
+        frames split over "model" when F divides it (``GridSharder.encoder``),
+        and so does the memory."""
         cfg = self.cfg
         if not cfg.is_encdec:
             return None
         x = frontend.to(device=params.embed.device, dtype=torch_dtype(cfg.dtype))
-        for g, gp in zip(cfg.encoder_program(), params.encoder.groups):
-            x, _ = tf.group_apply(gp, x, g, cfg)
-        return rms_norm(x, params.encoder.final_norm, cfg.norm_eps)
+        sh = sharder()
+        with sh.encoder(x.shape[1]) if sh is not None else contextlib.nullcontext():
+            x = tf.shard_act(x, "seq")
+            for g, gp in zip(cfg.encoder_program(), params.encoder.groups):
+                x, _ = tf.group_apply(gp, x, g, cfg)
+            return rms_norm(x, tf.shard_act(params.encoder.final_norm, "norm"), cfg.norm_eps)
 
     def _decoder_input(self, params, batch):
         """Token embeddings, with the VLM patch prefix put in front of them
         in the model dtype."""
-        x = embed_lookup(params.embed, batch["tokens"], self.cfg.vocab_size)
+        x = embed_lookup(resolve(params.embed), batch["tokens"], self.cfg.vocab_size)
         if self.cfg.family == "vlm":
             x = torch.cat([batch["frontend"].to(device=x.device, dtype=x.dtype), x], dim=1)
         return x
@@ -463,7 +470,7 @@ class Model:
         caches bit-identical; their logits are garbage the caller discards."""
         cfg = self.cfg
         params = as_view(params)
-        x = embed_lookup(params.embed, token, cfg.vocab_size)
+        x = embed_lookup(resolve(params.embed), token, cfg.vocab_size)
         for g, gp, c in zip(cfg.decoder_program(), params.decoder.groups, state.layers):
             x, _ = tf.group_decode(gp, x, g, cfg, c, state.pos, active=active)
         adv = 1 if active is None else active.to(torch.int64)
@@ -481,7 +488,7 @@ class Model:
         back (``spec_verify``)."""
         cfg = self.cfg
         params = as_view(params)
-        x = embed_lookup(params.embed, tokens, cfg.vocab_size)
+        x = embed_lookup(resolve(params.embed), tokens, cfg.vocab_size)
         for g, gp, c in zip(cfg.decoder_program(), params.decoder.groups, state.layers):
             x, _ = tf.group_verify(gp, x, g, cfg, c, state.pos, active=active)
         W = tokens.shape[1]

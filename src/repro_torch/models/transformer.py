@@ -41,7 +41,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import Group, ModelConfig, Sub
-from repro_torch.distributed.sharding import SPLITS
+from repro_torch.distributed.sharding import SPLITS, DeferredStack, regather_saved
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
@@ -75,7 +75,7 @@ def _split_over_model(p, sub: Sub, cfg: ModelConfig) -> bool:
     "model"): the mark leaf of ``distributed.sharding.SPLITS``."""
     if sub.kind == "mlp":
         return p["w_gate" if cfg.act == "swiglu" else "w_in"].shape[-1] < cfg.d_ff
-    rule = SPLITS.get(sub.kind)
+    rule = SPLITS.get("attn" if sub.kind == "cross_attn" else sub.kind)
     return rule is not None and p[rule.mark].shape[rule.dim] < rule.whole(cfg)
 
 
@@ -155,7 +155,8 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, memory=None, positions=None):
             out = attn.full_attention(p, h, cfg, causal=sub.causal, window=sub.window,
                                       positions=positions)
     elif sub.kind == "cross_attn":
-        out = attn.full_attention(p, h, cfg, causal=False, x_kv=memory, rope=False)
+        out = attn.full_attention(p, h, cfg, causal=False, rope=False,
+                                  x_kv=shard_act(memory, "memory", tp=tp))
     elif sub.kind == "mlp":
         out = mlp_apply(p, h, cfg.act, cfg.d_ff)
     elif sub.kind == "moe":
@@ -199,26 +200,39 @@ def group_apply(params, x, group: Group, cfg: ModelConfig, memory=None, position
     JAX package's ``jax.checkpoint`` of its scan body: "full" saves only
     the layer's inputs, "dots" also the outputs of its 2-D products.
     ``memory`` is one of those inputs, so the encoder's gradient flows
-    through the checkpointed layers."""
+    through the checkpointed layers.
+
+    The body takes its layer's parameters itself (``layer_params``), so on
+    a grid a ``sharding.DeferredStack``'s gathers run inside it: freed after
+    the layer's forward and, under "full" and "dots", run again by the
+    recompute. Under "none" the gathered tensors the backward needs are
+    saved as the way to gather them (``sharding.regather_saved``). The body
+    installs the grid's sharder itself: the backward may recompute it on
+    the autograd engine's device thread, which does not see this thread's
+    ``activation_sharding``."""
     check_remat(remat)
+    grid_sharder = SHARDER.get()
 
-    def body(h, lp, memory):
-        aux = None
-        for i, s in enumerate(group.period):
-            h, a = sub_apply(lp[f"sub{i}"], h, s, cfg, memory=memory, positions=positions)
-            if a is not None:
-                aux = a if aux is None else aux + a
-        return h, aux
+    def body(h, layer, memory):
+        with activation_sharding(grid_sharder):
+            lp = layer_params(params, layer)
+            aux = None
+            for i, s in enumerate(group.period):
+                h, a = sub_apply(lp[f"sub{i}"], h, s, cfg, memory=memory, positions=positions)
+                if a is not None:
+                    aux = a if aux is None else aux + a
+            return h, aux
 
+    deferred = any(isinstance(t, DeferredStack) for sub in params.values() for t in sub.values())
     aux = None
     for layer in range(group.repeats):
-        lp = layer_params(params, layer)
         if remat == "none":
-            x, a = body(x, lp, memory)
+            with regather_saved() if deferred else contextlib.nullcontext():
+                x, a = body(x, layer, memory)
         elif remat == "full":
-            x, a = checkpoint(body, x, lp, memory, use_reentrant=False)
+            x, a = checkpoint(body, x, layer, memory, use_reentrant=False)
         else:
-            x, a = checkpoint(body, x, lp, memory, use_reentrant=False,
+            x, a = checkpoint(body, x, layer, memory, use_reentrant=False,
                               context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                            _dots_policy))
         if a is not None:
@@ -313,6 +327,11 @@ def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, de
     """Zero caches stacked over repeats. Only caching subs get entries:
     self-attention K/V of ``cache_len`` positions, cross-attention K/V of
     the memory's ``memory_len``, the recurrent states."""
+    sh = sharder()
+    if memory_len and sh is not None and sh.context_parallel:
+        raise ValueError("the context-parallel decode splits a cache's length over \"data\"; "
+                         "an encoder-decoder arch's cross-attention caches are not ported to it "
+                         "(ROADMAP.md Queue 1 item 7b)")
     caches = {}
     for i, s in enumerate(group.period):
         key, R = f"sub{i}", group.repeats

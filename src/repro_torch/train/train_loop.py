@@ -146,17 +146,23 @@ def with_flash(model: Model, flash_min_len: Optional[int]) -> Model:
 
 
 def make_accum_grads(model: Model, *, microbatch: int = 0, remat: str = "none",
-                     flash_min_len: Optional[int] = None) -> Callable:
+                     flash_min_len: Optional[int] = None,
+                     grads_of: Optional[Callable] = None) -> Callable:
     """Build ``accum(params, batch) → (loss, metrics, grads)``. With
     ``microbatch`` > 0 the batch is split into chunks of that many rows and
     the gradients are accumulated in f32, then averaged and cast back to the
     parameter dtype; pre-chunked (n, mb, L) batches are taken as they are.
     ``remat`` ("none", "full", "dots") rematerialises each decoder layer in
-    the backward pass (``models.transformer.group_apply``)."""
+    the backward pass (``models.transformer.group_apply``).
+
+    ``grads_of(params, batch) → (loss, {"ce", "aux", "ppl"}, grads)``: the
+    gradient of one chunk, in place of the model's own on this process
+    (the grid step's: a rank's reduced blocks of a chunk of the global
+    batch, ``train.grid``); the accumulation is the same."""
     check_remat(remat)
     model = with_flash(model, flash_min_len)
 
-    def grads_of(params, batch):
+    def own_grads(params, batch):
         if isinstance(params, bucketing.BucketedParams):
             leaves = tuple(d.detach().requires_grad_(True) for d in params.data)
             p = bucketing.BucketedParams(leaves, params.layout)
@@ -173,6 +179,8 @@ def make_accum_grads(model: Model, *, microbatch: int = 0, remat: str = "none",
         else:
             grads = bucketing.tree_unflatten(skel, grads)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    grads_of = grads_of or own_grads
 
     def accum_grads(params, batch):
         pre_chunked = batch["tokens"].dim() == 3
@@ -216,12 +224,35 @@ def _with_grad_leaves(grads, leaves):
     return bucketing.tree_unflatten(bucketing.tree_flatten_with_path(grads)[1], leaves)
 
 
-def _apply_opt(opt: CollageAdamW, grads, params, opt_state, donate=False, reduce_fn=None):
+def _apply_opt(opt: CollageAdamW, grads, params, opt_state, donate=False, reduce_fn=None, **kw):
+    """The optimizer step of either layout; ``kw``: ``step_bucketed``'s or
+    ``step``'s own (a grid rank's ``metrics_partials``, ``elem_offsets``,
+    ``blocks``)."""
     if isinstance(params, bucketing.BucketedParams):
-        return opt.step_bucketed(grads, params, opt_state, donate=donate, reduce_fn=reduce_fn)
+        return opt.step_bucketed(grads, params, opt_state, donate=donate, reduce_fn=reduce_fn,
+                                 **kw)
     if donate:
         raise ValueError("donate: the bucketed layout only (the tree step is per leaf)")
-    return opt.step(grads, params, opt_state)
+    return opt.step(grads, params, opt_state, **kw)
+
+
+def _apply_bucket_reduced(opt: CollageAdamW, grads, params, opt_state, dtype, use_ef: bool,
+                          psum_axis, n_dev: int, donate=False, **kw):
+    """``_apply_opt`` on buckets with each bucket's round trip (``dtype``)
+    or mean over ``psum_axis`` just before its update
+    (``compression.bucket_reducer``); the residual rows (row 0 of
+    ``BucketedOptState.grad_err``: this program's) written back as the
+    buckets are, in place when ``donate``."""
+    reduce_fn = None
+    if dtype is not None or psum_axis is not None:
+        rows = tuple(e[0] for e in opt_state.grad_err) if use_ef else None
+        reduce_fn, new_rows = compression.bucket_reducer(rows, dtype, psum_axis, n_dev,
+                                                         params.layout.n_buckets)
+    new_params, new_state, om = _apply_opt(opt, grads, params, opt_state, donate, reduce_fn, **kw)
+    if reduce_fn is not None and use_ef:
+        new_state = dataclasses.replace(new_state, grad_err=compression.store_error_rows(
+            opt_state.grad_err, new_rows, donate))
+    return new_params, new_state, om
 
 
 def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
@@ -241,14 +272,20 @@ def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
 
     ``grid`` (a ``launch.mesh.Grid``): the step of one rank of an FSDP × TP
     grid (``train.grid.make_grid_train_step`` under the default rules), on
-    its blocks of the state and the global batch."""
+    its blocks of the state and the global batch, with the same
+    ``microbatch``, ``remat``, ``grad_compression`` (the local round trip
+    of the global gradient) and ``donate``; ``psum_axis`` is the shard_map
+    engine's (``train.sharded``) and raises on a grid."""
     if grid is not None:
         from repro_torch.train.grid import make_grid_train_step
-        if microbatch or remat != "none" or grad_compression != "none" or psum_axis is not None \
-                or donate:
-            raise ValueError("the grid step takes no microbatch, remat, grad_compression, "
-                             "psum_axis or donate (ROADMAP.md Queue 1 item 7b)")
-        return make_grid_train_step(with_flash(model, flash_min_len), opt, grid)
+        if psum_axis is not None:
+            raise ValueError("psum_axis belongs to the shard_map engine (train/sharded.py), whose "
+                             "ranks each average their own batch's gradients; the grid step's "
+                             "reductions are its gathers' backward over (data, model), and the "
+                             "JAX package's GSPMD step takes no psum_axis either")
+        return make_grid_train_step(with_flash(model, flash_min_len), opt, grid, remat=remat,
+                                    microbatch=microbatch, grad_compression=grad_compression,
+                                    donate=donate)
     if psum_axis is not None and not isinstance(psum_axis, coll.Axis):
         raise TypeError(f"psum_axis: a collectives.Axis, not {type(psum_axis).__name__}")
     accum_grads = make_accum_grads(model, microbatch=microbatch, remat=remat,
@@ -258,25 +295,20 @@ def make_train_step(model: Model, opt: CollageAdamW, *, microbatch: int = 0,
 
     def train_step(state: TrainState, batch):
         loss, lmetrics, grads = accum_grads(state.params, batch)
-        grad_err, opt_state = state.grad_err, state.opt_state
-        reduce_fn = None
-        if dtype is not None or psum_axis is not None:
-            if isinstance(grads, bucketing.BucketedParams):
-                # one round trip per bucket, just before its update; the
-                # residual rows are per dp rank (this single program is row 0)
-                rows = tuple(e[0] for e in opt_state.grad_err) if use_ef else None
-                reduce_fn, new_rows = compression.bucket_reducer(
-                    rows, dtype, psum_axis, n_dev, grads.layout.n_buckets)
-            else:
+        grad_err = state.grad_err
+        if isinstance(grads, bucketing.BucketedParams):
+            # one round trip per bucket, just before its update; the
+            # residual rows are per dp rank (this single program is row 0)
+            params, opt_state, om = _apply_bucket_reduced(
+                opt, grads, state.params, state.opt_state, dtype, use_ef, psum_axis, n_dev,
+                donate)
+        else:
+            if dtype is not None or psum_axis is not None:
                 grads, new_err = compression.reduce_tree(grads, grad_err if use_ef else None,
                                                          dtype, psum_axis, n_dev)
                 if use_ef:
                     grad_err = new_err
-        params, opt_state, om = _apply_opt(opt, grads, state.params, opt_state, donate,
-                                           reduce_fn)
-        if reduce_fn is not None and use_ef:
-            opt_state = dataclasses.replace(opt_state, grad_err=compression.store_error_rows(
-                state.opt_state.grad_err, new_rows, donate))
+            params, opt_state, om = _apply_opt(opt, grads, state.params, state.opt_state, donate)
         metrics = {"loss": loss, **lmetrics, "edq": om.edq, "update_norm": om.update_norm,
                    "imprecision_pct": om.imprecision_pct, "grad_norm": om.grad_norm}
         return TrainState(params, opt_state, grad_err), metrics

@@ -28,9 +28,11 @@ steps, the serving):
   the JAX functions (3e-2 in bf16, 1e-5 in f32), the context-parallel
   decode (a batch of one, the cache length over "data"), greedy
   ``generate`` tokens equal to the JAX ones in f32;
-* build refusals: seamless and internvl2 (the frontends). MoE, rwkv6,
-  jamba and the bucketed layout run on the grid:
-  tests/test_torch_gspmd_families.py.
+* the one build refusal left: ``psum_axis`` (the shard_map engine's).
+  MoE, rwkv6, jamba and the bucketed layout run on the grid:
+  tests/test_torch_gspmd_families.py; the frontends, remat, microbatches,
+  compression, donation and the bucketed layout without FSDP:
+  tests/test_torch_gspmd_cells.py and test_torch_gspmd_cells_more.py.
 """
 
 import dataclasses
@@ -46,7 +48,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.collage import CollageAdamW
-from repro_torch.core.precision import BucketPolicy, PrecisionPolicy, Strategy
+from repro_torch.core.precision import PrecisionPolicy, Strategy
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import build_model
 from repro_torch.train import train_loop
@@ -211,6 +213,11 @@ def _env():
 
 
 def _numpy_params(arch, dtype, rng) -> dict:
+    """Weights from numpy of ``_cfg(arch, dtype)`` (``_numpy_params_of``)."""
+    return _numpy_params_of(_cfg(arch, dtype), rng)
+
+
+def _numpy_params_of(cfg, rng) -> dict:
     """Weights from numpy (the port's tree, its init's scales): matrices
     N(0, 1)·d_in^-1/2, the embedding and head N(0, 0.02²), norms
     N(0, 0.1²); bf16 through ml_dtypes, as the JAX package holds them."""
@@ -224,8 +231,8 @@ def _numpy_params(arch, dtype, rng) -> dict:
         scale = 0.1 if name.endswith("norm") else 0.02 if name in ("embed", "lm_head") \
             else shape[-2] ** -0.5
         a = (rng.standard_normal(shape) * scale).astype(np.float32)
-        return a.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else a
-    return map_leaves(draw, param_dict(build_model(_cfg(arch, dtype)).init(device="meta")))
+        return a.astype(ml_dtypes.bfloat16) if cfg.dtype == "bfloat16" else a
+    return map_leaves(draw, param_dict(build_model(cfg).init(device="meta")))
 
 
 def _inputs():
@@ -418,16 +425,6 @@ def test_greedy_generate_matches(runs):
     assert grids[(2, 2)]["serve_float32"]["generate"] == refs["serve_float32"]["generate"]
 
 
-@pytest.mark.parametrize("arch,bucketed", [("seamless-m4t-medium", False),
-                                           ("internvl2-1b", False)])
-def test_unported_grid_paths_refuse_at_build(arch, bucketed):
-    model = build_model(get_config(arch, smoke=True))
-    opt = CollageAdamW(1e-3, policy=PrecisionPolicy(bucketing=BucketPolicy(enabled=bucketed)))
-    with pytest.raises(ValueError, match=r"ROADMAP\.md Queue 1 item 7b") as e:
-        train_loop.make_train_step(model, opt, grid=mesh_lib.grid_shape(2, 2))
-    assert get_config(arch, smoke=True).name in str(e.value)
-
-
 def test_serving_with_attention_whole_refuses():
     """Serving under tp_mode mlponly/none (attention whole on every rank
     beside a cache whose heads ``cache_shardings`` splits over "model")
@@ -443,9 +440,31 @@ def test_serving_with_attention_whole_refuses():
             model.prefill(params, {"tokens": torch.zeros((2, 8), dtype=torch.int64)}, cache_len=16)
 
 
-@pytest.mark.parametrize("kw", [dict(remat="full"), dict(microbatch=2),
-                                dict(grad_compression="bf16_ef"), dict(donate=True)])
-def test_grid_step_options_refuse_at_build(kw):
+def test_context_parallel_cross_caches_refuse():
+    """The context-parallel decode splits a cache's length over "data"; an
+    encoder-decoder arch's cross-attention caches are not ported to it, so
+    its prefill raises before any collective, naming the roadmap item."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("seamless-m4t-medium", smoke=True)
+    model = build_model(cfg)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64),
+             "frontend": torch.zeros((1, cfg.frontend_len, cfg.d_model))}
+    with torch.no_grad(), tf.activation_sharding(
+            sh.make_activation_sharder(mesh_lib.grid_shape(2, 2), context_parallel=True)):
+        with pytest.raises(ValueError, match=r"ROADMAP\.md Queue 1 item 7b"):
+            model.prefill(model.init(0, device="cpu"), batch, cache_len=16)
+
+
+def test_grid_step_refuses_psum_axis():
+    """``psum_axis`` is the shard_map engine's (train/sharded.py): the grid
+    step's gradient reductions are its gathers' backward, and the JAX
+    package's GSPMD step takes none either."""
+    from repro_torch.distributed.collectives import Axis
+
     model = build_model(get_config("granite-3-2b", smoke=True))
-    with pytest.raises(ValueError, match=r"ROADMAP\.md Queue 1 item 7b"):
-        train_loop.make_train_step(model, CollageAdamW(1e-3), grid=mesh_lib.grid_shape(2, 2), **kw)
+    with pytest.raises(ValueError, match=r"shard_map engine \(train/sharded\.py\)") as e:
+        train_loop.make_train_step(model, CollageAdamW(1e-3), grid=mesh_lib.grid_shape(2, 2),
+                                   psum_axis=Axis())
+    assert "7b" not in str(e.value)
