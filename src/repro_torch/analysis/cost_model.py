@@ -40,6 +40,9 @@ HW = {"name": "NVIDIA H100 SXM (data sheet, dense, 700 W)",
       "peak_flops_f32": 67e12,         # f32 outside the tensor cores
       "hbm_bw": 3.35e12,
       "nvlink_bw": 450e9,              # per direction
+      # between nodes: the DGX H100 data sheet's 8 × 400 Gb/s ConnectX-7 a
+      # node of 8 cards, 50 GB/s a card each way
+      "internode_bw": 50e9,
       "hbm_per_card": 80e9}
 
 HBM_BYTES_PER_S = HW["hbm_bw"]
@@ -215,6 +218,12 @@ def model_step(trace: Trace, census: Optional[list] = None, n_dp: int = 1) -> di
     by = {"operations": 0.0, "bytes": 0.0}
     flops_bf16 = flops_f32 = 0.0
     n_bytes = 0
+    if trace.tally is not None:        # a lean trace: the same sums, taken as it ran
+        t = trace.tally
+        compute, memory, n_bytes = t.compute_s, t.memory_s, t.nbytes
+        flops_bf16, flops_f32 = t.flops_bf16, t.flops_f32
+        by = {"operations": t.by_operations_s, "bytes": t.by_bytes_s}
+        ops_s = t.by_operations_s + t.by_bytes_s
     for op in trace.ops:
         if op.device != trace.device:
             continue
@@ -233,6 +242,8 @@ def model_step(trace: Trace, census: Optional[list] = None, n_dp: int = 1) -> di
     kernels_s = 0.0
     kernel_ms: dict = {}
     for call in trace.kernels:
+        if not call.kernel:          # the CPU ran the plain version: its ops are priced
+            continue
         ms, _ = kernel_bound(call)
         kernels_s += ms * 1e-3
         kernel_ms[call.name] = kernel_ms.get(call.name, 0.0) + ms

@@ -28,7 +28,13 @@ from repro_torch.analysis.trace import Trace
 
 def peak_hbm(trace: Trace) -> dict:
     """The modelled peak and the inputs' bytes; the measured keys are None
-    until a caller on the card fills them in (``measured_peak``)."""
+    until a caller on the card fills them in (``measured_peak``). A lean
+    trace (``trace.Tally``) carries its peak already."""
+    if trace.tally is not None:
+        t = trace.tally
+        return {"peak_bytes_modeled": int(t.peak), "param_bytes": int(t.param_bytes),
+                "end_bytes_modeled": None, "peak_bytes_measured": None,
+                "held_before_bytes": None}
     n = len(trace.ops)
     delta = [0] * (n + 1)
     start = param_bytes = 0

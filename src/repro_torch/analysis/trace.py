@@ -19,6 +19,14 @@ lowers nothing, so the port's passes read a trace of one step instead:
 * every launch of the port's hand-written kernels (``record_kernels``):
   the ctypes kernels are invisible to the dispatcher, but their wrappers
   count their launches, and the recorder logs each launch with its shapes.
+  A wrapper's call on meta tensors (a dry run, ``launch.dryrun``) stands
+  for the launch the card would make and is logged as one; a call on the
+  CPU, where the plain version runs, is logged with ``kernel=False``, and
+  the plain version's own ops are marked (``OpRecord.in_wrapper``).
+
+On the meta device (a dry run) the same recorder traces one rank's step
+with no data: every op, storage and kernel call as the card's, the peak
+and FLOPs as the card's trace would give them.
 
 On the card the autograd engine runs the backward on a device thread; the
 dispatch mode reaches it through the engine's thread-local state, and
@@ -81,6 +89,7 @@ class OpRecord:
     nbytes: int
     backward: bool
     location: Optional[str] = None
+    in_wrapper: bool = False
 
     @property
     def name(self) -> str:
@@ -124,11 +133,36 @@ class StorageRecord:
 
 @dataclasses.dataclass
 class KernelCall:
-    """One launch of a hand-written kernel: its wrapper's name and the
-    shapes the cost model reads (``cost_model.kernel_bound``)."""
+    """One call of a hand-written kernel's wrapper: its name and the shapes
+    the cost model reads (``cost_model.kernel_bound``). ``kernel``: the
+    kernel was launched, or on the meta device would be; False: the plain
+    version ran (the CPU)."""
 
     name: str
     args: dict
+    kernel: bool = True
+
+
+@dataclasses.dataclass
+class Tally:
+    """A lean trace's running totals, in place of its op and storage lists
+    (``recording(lean=True)``, the dry run's: a production rank's step runs
+    to millions of ops). The cost terms are ``cost_model.model_step``'s per
+    op, summed; ``peak`` is the peak of the bytes live at a birth, the
+    inputs' from the start, as ``liveness.peak_hbm``'s sweep gives it."""
+
+    n_ops: int = 0
+    n_backward_ops: int = 0
+    flops_bf16: float = 0.0
+    flops_f32: float = 0.0
+    nbytes: int = 0
+    compute_s: float = 0.0
+    memory_s: float = 0.0
+    by_operations_s: float = 0.0
+    by_bytes_s: float = 0.0
+    param_bytes: int = 0
+    live: int = 0
+    peak: int = 0
 
 
 @dataclasses.dataclass
@@ -137,10 +171,17 @@ class Trace:
     ops: list = dataclasses.field(default_factory=list)
     storages: list = dataclasses.field(default_factory=list)
     kernels: list = dataclasses.field(default_factory=list)
+    tally: Optional[Tally] = None
 
     @property
     def n_backward_ops(self) -> int:
+        if self.tally is not None:
+            return self.tally.n_backward_ops
         return sum(op.backward for op in self.ops)
+
+    @property
+    def n_ops(self) -> int:
+        return self.tally.n_ops if self.tally is not None else len(self.ops)
 
     def require_backward(self) -> None:
         """Raise unless the trace holds ops of the autograd backward pass."""
@@ -150,6 +191,8 @@ class Trace:
                 "dispatch mode did not reach the autograd engine's thread")
 
     def flops(self) -> float:
+        if self.tally is not None:
+            return float(self.tally.flops_bf16 + self.tally.flops_f32)
         return float(sum(op.flops for op in self.ops))
 
 
@@ -281,7 +324,8 @@ class _Recorder(TorchDispatchMode):
         rec = OpRecord(i, str(func), tuple((_dtype(t), tuple(t.shape)) for t in ins),
                        tuple((_dtype(t), tuple(t.shape)) for t in outs), tuple(alias),
                        tuple(producers), dev, flops, nbytes,
-                       torch._C._current_autograd_node() is not None)
+                       torch._C._current_autograd_node() is not None,
+                       in_wrapper=_IN_WRAPPER[0] > 0)
         if rec.convert() is not None:
             rec.location = _location()
         self.trace.ops.append(rec)
@@ -290,6 +334,107 @@ class _Recorder(TorchDispatchMode):
     def __exit__(self, *exc):
         self._poll(len(self.trace.ops))
         return super().__exit__(*exc)
+
+
+class _Tallier(TorchDispatchMode):
+    """The lean recorder: each op priced and summed as it runs (``Tally``),
+    the storages' bytes live tracked for the peak alone.
+
+    A storage's death is seen by polling its weak ref. Polling every live
+    storage at every birth costs O(live) an op; here a birth polls only
+    when the bytes it may find live (every storage not yet seen dead) would
+    pass the peak so far (else the peak cannot move), first the storages
+    born since the last full poll, then, if the bound still passes it, all
+    of them. The peak is the same as a poll at every birth gives."""
+
+    def __init__(self, trace: Trace):
+        super().__init__()
+        from repro_torch.analysis import cost_model
+        self.hw = cost_model.HW
+        self.trace = trace
+        self.t = trace.tally = Tally()
+        self.old: dict = {}          # storage cdata → (weak ref, bytes)
+        self.young: dict = {}
+
+    def register(self, tensors: Iterable[torch.Tensor]) -> None:
+        for t in tensors:
+            st = _storage(t)
+            if st is not None and st._cdata not in self.old and t.device.type == self.trace.device:
+                self.old[st._cdata] = (StorageWeakRef(st), st.nbytes())
+                self.t.live += st.nbytes()
+                self.t.param_bytes += st.nbytes()
+        self.t.peak = self.t.live
+
+    def _sweep(self, pool: dict) -> None:
+        dead = [c for c in pool if _expired(c)]
+        for c in dead:
+            self.t.live -= pool.pop(c)[1]
+
+    def _birth(self, st) -> None:
+        n = st.nbytes()
+        t = self.t
+        if t.live + n > t.peak:
+            self._sweep(self.young)
+            if t.live + n > t.peak:
+                self._sweep(self.old)
+                self.old.update(self.young)
+                self.young.clear()
+        self.young[st._cdata] = (StorageWeakRef(st), n)
+        t.live += n
+        t.peak = max(t.peak, t.live)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        ins = _tensors(args) + _tensors(kwargs)
+        outs = _tensors(out)
+        fresh = False
+        in_store = set()
+        for x in ins:                # as the full recorder: an unseen input is born here
+            st = _storage(x)
+            if st is None:
+                continue
+            in_store.add(st._cdata)
+            if x.device.type == self.trace.device and st._cdata not in self.young \
+                    and st._cdata not in self.old:
+                self._birth(st)
+        for o in outs:
+            st = _storage(o)
+            if st is None:
+                fresh = True
+                continue
+            c = st._cdata
+            if c in in_store:
+                continue
+            fresh = True
+            if o.device.type == self.trace.device and c not in self.young and c not in self.old:
+                self._birth(st)
+        t = self.t
+        t.n_ops += 1
+        t.n_backward_ops += torch._C._current_autograd_node() is not None
+        dev = (outs or ins)[0].device.type if (outs or ins) else "cpu"
+        if dev != self.trace.device:
+            return out
+        flops = _flops(func, args, kwargs, out)
+        nbytes = 0
+        if fresh or func._overloadpacket.__name__.endswith("_"):
+            nbytes = sum(x.numel() * x.element_size() for x in (*ins, *outs))
+        dt = _dtype(ins[0]) if ins else (_dtype(outs[0]) if outs else "float32")
+        narrow = dt in NARROW_FLOATS
+        t_c = flops / self.hw["peak_flops_bf16" if narrow else "peak_flops_f32"]
+        t_m = nbytes / self.hw["hbm_bw"]
+        if narrow:
+            t.flops_bf16 += flops
+        else:
+            t.flops_f32 += flops
+        t.nbytes += nbytes
+        t.compute_s += t_c
+        t.memory_s += t_m
+        if t_c > t_m:
+            t.by_operations_s += t_c
+        else:
+            t.by_bytes_s += t_m
+        return out
 
 
 def tensors_of(tree: Any) -> list:
@@ -315,21 +460,22 @@ def tensors_of(tree: Any) -> list:
 
 
 @contextlib.contextmanager
-def recording(device, inputs: Any = ()):
+def recording(device, inputs: Any = (), lean: bool = False):
     """``with recording(device, inputs) as trace:`` records every aten call
     made inside (the backward included) into ``trace``; the storages of
-    ``inputs`` (any nest of tensors) count as held from the start."""
+    ``inputs`` (any nest of tensors) count as held from the start.
+    ``lean``: totals only (``Tally``), no op or storage list."""
     trace = Trace(torch.device(device).type)
-    rec = _Recorder(trace)
+    rec = (_Tallier if lean else _Recorder)(trace)
     rec.register(tensors_of(inputs))
     with rec:
         yield trace
 
 
-def record_step(step: Callable, state: Any, batch: Any, *, device) -> tuple:
+def record_step(step: Callable, state: Any, batch: Any, *, device, lean: bool = False) -> tuple:
     """Run ``step(state, batch)`` once under the recorder and the kernel log
     → (its output, the Trace). The state and the batch are the inputs."""
-    with record_kernels() as calls, recording(device, (state, batch)) as trace:
+    with record_kernels() as calls, recording(device, (state, batch), lean) as trace:
         out = step(state, batch)
     trace.kernels = calls
     return out, trace
@@ -359,26 +505,34 @@ def _kernel_args(name: str, args: tuple, kwargs: dict) -> dict:
     return dict(n=args[0].numel())
 
 
+_IN_WRAPPER = [0]          # depth of kernel-wrapper calls the recorder is inside
+
+
 def _logging(orig: Callable, name: str, log: list) -> Callable:
     def wrapper(*args, **kwargs):
-        before = wrapper.launches
-        out = orig(*args, **kwargs)
-        if wrapper.launches != before:
-            log.append(KernelCall(name, _kernel_args(name, args, kwargs)))
+        before = (wrapper.launches, wrapper.meta_calls)
+        _IN_WRAPPER[0] += 1
+        try:
+            out = orig(*args, **kwargs)
+        finally:
+            _IN_WRAPPER[0] -= 1
+        kernel = (wrapper.launches, wrapper.meta_calls) != before
+        log.append(KernelCall(name, _kernel_args(name, args, kwargs), kernel))
         return out
-    wrapper.launches = orig.launches
+    wrapper.launches, wrapper.meta_calls = orig.launches, orig.meta_calls
     return wrapper
 
 
 @contextlib.contextmanager
 def record_kernels():
-    """``with record_kernels() as calls:`` logs every kernel launch inside.
+    """``with record_kernels() as calls:`` logs every kernel wrapper call
+    inside (``KernelCall.kernel``: a launch, or a meta call).
 
-    Each wrapper counts its launches in its own ``launches`` attribute,
-    which it reaches through its module's global name; the log puts a
-    logging wrapper under that name, and the wrapper's count is handed back
-    to the original when the block ends, so no launch is lost or counted
-    twice."""
+    Each wrapper counts its launches (and meta calls) in its own
+    attributes, which it reaches through its module's global name; the log
+    puts a logging wrapper under that name, and the wrapper's counts are
+    handed back to the original when the block ends, so no launch is lost
+    or counted twice."""
     log: list = []
     swapped = []
     for modname, name in KERNELS:
@@ -391,5 +545,5 @@ def record_kernels():
         yield log
     finally:
         for mod, name, orig, wrapper in swapped:
-            orig.launches = wrapper.launches
+            orig.launches, orig.meta_calls = wrapper.launches, wrapper.meta_calls
             setattr(mod, name, orig)

@@ -182,3 +182,12 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     mode: str                 # "train" | "prefill" | "decode"
+
+
+# the JAX package's assigned input-shape cells (``repro.configs.base.SHAPES``)
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

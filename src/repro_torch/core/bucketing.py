@@ -308,12 +308,6 @@ def rebucket(data: Sequence[torch.Tensor], old: BucketLayout, new: BucketLayout)
     return tuple(out)
 
 
-def _no_grad_err(state: BucketedOptState):
-    if state.grad_err is not None:
-        raise NotImplementedError("moving grad_err (gradient compression) between bucket "
-                                  "layouts: not yet ported to repro_torch")
-
-
 def _map_bucketed(obj: Any, fix) -> Any:
     """``fix`` applied to every BucketedParams / BucketedOptState inside
     ``obj`` (dataclasses, such as a TrainState, tuples, lists and dicts)."""
@@ -336,10 +330,14 @@ def migrate(obj: Any, new_layout: BucketLayout) -> Any:
     def fix(x):
         if isinstance(x, BucketedParams):
             return BucketedParams(rebucket(x.data, x.layout, new_layout), new_layout)
-        _no_grad_err(x)
         rb = lambda t: None if t is None else rebucket(t, x.layout, new_layout)
+        ge = None
+        if x.grad_err is not None:       # each rank's residual row moves on its own
+            rows = [rebucket([e[r] for e in x.grad_err], x.layout, new_layout)
+                    for r in range(x.grad_err[0].shape[0])]
+            ge = tuple(torch.stack([row[b] for row in rows]) for b in range(len(rows[0])))
         return BucketedOptState(x.step, rb(x.m), rb(x.vhi), rb(x.vlo), rb(x.delta),
-                                rb(x.master), x.rng, new_layout)
+                                rb(x.master), x.rng, new_layout, ge)
 
     return _map_bucketed(obj, fix)
 
@@ -360,9 +358,18 @@ def state_template_for_layout(obj: Any, layout: BucketLayout) -> Any:
             dev = x.data[0].device
             return BucketedParams(tuple(torch.zeros((b.padded,), dtype=named_dtype(b.dtype),
                                                     device=dev) for b in layout.buckets), layout)
-        _no_grad_err(x)
+        ge = None
+        if x.grad_err is not None:
+            # a residual's dtype follows its bucket's parameter dtype (f32, or
+            # a component dtype that holds it exactly): mapped across layouts
+            # through it, so that a restore does not re-round f32 residuals
+            by_dtype = {b.dtype: e.dtype for b, e in zip(x.layout.buckets, x.grad_err)}
+            rows, dev = x.grad_err[0].shape[0], x.grad_err[0].device
+            ge = tuple(torch.zeros((rows, b.padded), dtype=by_dtype.get(b.dtype,
+                                                                        x.grad_err[0].dtype),
+                                   device=dev) for b in layout.buckets)
         return BucketedOptState(x.step, zeros_for(x.m), zeros_for(x.vhi), zeros_for(x.vlo),
-                                zeros_for(x.delta), zeros_for(x.master), x.rng, layout)
+                                zeros_for(x.delta), zeros_for(x.master), x.rng, layout, ge)
 
     return _map_bucketed(obj, fix)
 

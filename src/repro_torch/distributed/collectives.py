@@ -12,7 +12,12 @@ all-to-all of shards and the same local sum. A backend's ring reduce would
 round bf16 at every hop, in an order of its own.
 
 ``Axis`` names the ranks of the dp axis; ``Axis()`` is one rank with no
-process group, where every collective is the identity. Rows: a rank may
+process group, where every collective is the identity. A virtual axis
+(``virtual=True``: ``launch.mesh.virtual_grid``) is a line of ranks with
+no processes behind it, for a dry run of one rank on the meta device:
+each collective records its census entry as on a real axis and returns
+tensors of the real collective's shapes and dtypes, and moves no data (it
+is never the one-rank identity). Rows: a rank may
 carry several virtual devices of the reference's mesh (the pipeline stages
 it holds, ``distributed.pipeline``): their payloads go as rows of one
 tensor, and ``joint=True`` sums over the (row, rank) pairs in the order of
@@ -69,12 +74,14 @@ def _record(op: str, role: str, wire: torch.Tensor, numel: Optional[int] = None)
 class Axis:
     """The data-parallel axis: ``size`` ranks of the process group
     ``group`` (None: the default group), this process being ``rank``.
-    ``Axis()``: a single rank and no group."""
+    ``Axis()``: a single rank and no group. ``virtual``: ranks with no
+    processes (no group): the collectives move nothing."""
 
     size: int = 1
     rank: int = 0
     group: Any = None
     distributed: bool = False
+    virtual: bool = False
 
     @classmethod
     def of(cls, group=None) -> "Axis":
@@ -119,7 +126,8 @@ def _gather(x: torch.Tensor, axis: Axis, role: str) -> list:
     w = _wire(x.contiguous())
     _record("all_gather", role, w)
     out = [torch.empty_like(w) for _ in range(axis.size)]
-    dist.all_gather(out, w, group=axis.group)
+    if not axis.virtual:
+        dist.all_gather(out, w, group=axis.group)
     return [_unwire(o, x.dtype) for o in out]
 
 
@@ -161,7 +169,8 @@ def _all_to_all(w: torch.Tensor, axis: Axis, role: str) -> torch.Tensor:
     came from rank j."""
     _record("all_to_all", role, w)
     out = torch.empty_like(w)
-    dist.all_to_all_single(out, w, group=axis.group)
+    if not axis.virtual:
+        dist.all_to_all_single(out, w, group=axis.group)
     return out
 
 
@@ -185,7 +194,8 @@ def pmax(x: torch.Tensor, axis: Optional[Axis], role: str = "amax") -> torch.Ten
         return x.clone()
     out = x.contiguous().clone()
     _record("all_reduce_max", role, out)
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=axis.group)
+    if not axis.virtual:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=axis.group)
     return out
 
 

@@ -7,9 +7,10 @@ D⁻, D), round-to-nearest onto bf16 after every operation, and optionally
 the per-tile metric partials (``det_sum`` over each (br, 128) tile, then
 over the tiles, both on the card). On a CUDA tensor it launches
 ``csrc/collage_update/collage_update.cu`` (built on first use) or raises;
-on a CPU tensor it runs the plain version ``ref.collage_bucket_update_plain``.
-Nothing else selects the path. ``collage_bucket_update.launches`` counts
-kernel launches.
+on a CPU tensor it runs the plain version ``ref.collage_bucket_update_plain``;
+on a meta tensor (a dry run) it returns the kernel's empty outputs and runs
+nothing. Nothing else selects the path. ``collage_bucket_update.launches``
+counts kernel launches, ``collage_bucket_update.meta_calls`` meta calls.
 
 The update is functional by default, as the JAX one: new state tensors
 are allocated and the inputs are left as they were. With ``in_place`` the
@@ -137,12 +138,15 @@ def collage_bucket_update(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=N
             strategy=strategy, pt_decay=pt_decay, compute_metrics=compute_metrics,
             block_rows=block_rows, tiled_metrics=True)
         return (copy_into(state, out) if in_place else out), parts
-    if g.device.type != "cuda":
+    if g.device.type not in ("cuda", "meta"):
         raise ValueError(f"collage_bucket_update: unsupported device {g.device}")
     out, sums = launch(state, g, lr, bc1, bc2, seed, elem_offset, b1=b1, b2=b2, eps=eps, wd=wd,
                        strategy=strategy, pt_decay=pt_decay, compute_metrics=compute_metrics,
                        block_rows=block_rows, in_place=in_place)
-    collage_bucket_update.launches += 1
+    if g.device.type == "meta":
+        collage_bucket_update.meta_calls += 1
+    else:
+        collage_bucket_update.launches += 1
     return out, None if sums is None else tuple(sums[i] for i in range(N_METRICS))
 
 
@@ -162,13 +166,14 @@ def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9,
     without metrics, or with ``finish=False``, which leaves out the launches
     that sum over the tiles). ``in_place``: the outputs are ``state``'s own
     tensors. Counts nothing: ``collage_bucket_update`` counts its own
-    launches."""
+    launches. On meta tensors (a dry run) it checks and allocates what the
+    launch would, and launches nothing."""
     from repro_torch.core import bucketing
     from repro_torch.kernels import build
     from repro_torch.kernels.collage_update import ref
 
     _check(state, g, strategy)
-    if g.device.type != "cuda":
+    if g.device.type not in ("cuda", "meta"):
         raise ValueError(f"the collage_update kernel takes CUDA tensors, got {g.device}")
     if g.dtype != torch.bfloat16:
         raise TypeError(f"collage_update kernel takes bf16 gradients, got {g.dtype}")
@@ -185,7 +190,6 @@ def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9,
 
     n = g.shape[0]
     br, grid = kernel_grid(n, block_rows)
-    lib = _library()
     out = {f: state[f] if in_place else torch.empty_like(state[f])
            for f in state_fields(strategy)}
     consts = ref.update_constants(b1, b2, eps, wd, pt_decay, lr)
@@ -198,6 +202,9 @@ def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9,
         if finish:          # the 5 sums, then from 8 the scratch of the sum over the tiles
             sums = torch.empty((8 + N_METRICS * (FINISH_ROWS + 48),), dtype=torch.float32,
                                device=g.device)
+    if g.device.type == "meta":
+        return out, None if sums is None else sums[:N_METRICS]
+    lib = _library()
     ptr = lambda d, f: d[f].data_ptr() if f in d else None
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.collage_update(
@@ -216,3 +223,4 @@ def launch(state: dict, g, lr, bc1, bc2, seed=None, elem_offset=None, *, b1=0.9,
 
 
 collage_bucket_update.launches = 0
+collage_bucket_update.meta_calls = 0

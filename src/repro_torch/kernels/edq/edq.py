@@ -8,8 +8,10 @@ sums the columns, as the JAX wrapper sums ``partials[:, i]`` (here in f64,
 rounded once, so that the lost count stays exact past 2^24 elements). ``edq_metrics``
 finalizes them as the JAX ``edq_metrics`` does. On a CUDA tensor the
 wrapper launches ``csrc/edq/edq.cu`` (built on first use) or raises; on a
-CPU tensor it runs the plain version ``ref.edq_partials_plain``. Nothing
-else selects the path. ``edq_partials.launches`` counts kernel launches.
+CPU tensor it runs the plain version ``ref.edq_partials_plain``; on a
+meta tensor (a dry run) it returns the kernel's empty output and runs
+nothing. Nothing else selects the path. ``edq_partials.launches`` counts
+kernel launches, ``edq_partials.meta_calls`` meta calls.
 """
 
 from __future__ import annotations
@@ -56,13 +58,16 @@ def edq_partials(u: torch.Tensor, e: torch.Tensor, atol: float = 0.0) -> torch.T
     _check(u, e)
     if u.device.type == "cpu":
         return ref.edq_partials_plain(u, e, atol)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cuda", "meta"):
         raise ValueError(f"edq_partials: unsupported device {u.device}")
     n = u.numel()
     grid = -(-n // TILE)
-    lib = _library()
     partials = torch.empty((grid, 4), dtype=torch.float32, device=u.device)
     out = torch.empty((4,), dtype=torch.float32, device=u.device)
+    if u.device.type == "meta":         # a dry run: the kernel's output, nothing run
+        edq_partials.meta_calls += 1
+        return out
+    lib = _library()
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = lib.edq_partials(u.data_ptr(), e.data_ptr(), partials.data_ptr(), out.data_ptr(),
                            n, grid, float(atol), stream)
@@ -74,6 +79,7 @@ def edq_partials(u: torch.Tensor, e: torch.Tensor, atol: float = 0.0) -> torch.T
 
 
 edq_partials.launches = 0
+edq_partials.meta_calls = 0
 
 
 def finalize(partials: torch.Tensor, n: int) -> dict:

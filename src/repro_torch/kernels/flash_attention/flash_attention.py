@@ -10,9 +10,12 @@ forward.
 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` are the wrappers: on
 CUDA tensors they launch the kernels of ``csrc/flash_attention/flash_fwd.cu``
 and ``flash_bwd.cu`` (built on first use by ``kernels.build``) or raise; on
-CPU tensors they run the plain versions. Nothing else selects the path:
-there is no fallback from a kernel to its plain version. Each wrapper's
-``launches`` counts its kernel launches.
+CPU tensors they run the plain versions; on meta tensors (a dry run,
+``launch.dryrun``) they check what the kernel checks and return empty
+outputs of the kernel's shapes and dtypes, running nothing. Nothing else
+selects the path: there is no fallback from a kernel to its plain version.
+Each wrapper's ``launches`` counts its kernel launches, ``meta_calls`` its
+calls on meta tensors.
 
 One departure from the JAX package: its backward takes the row term
 ``D = rowsum(dO ∘ O)`` from the stored bf16 O. O's rounding error then
@@ -103,7 +106,7 @@ def flash_fwd(q, k, v, *, causal=True, window=0):
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash_fwd kernel takes {KERNEL_DTYPES}, got {q.dtype}")
@@ -116,9 +119,12 @@ def flash_fwd(q, k, v, *, causal=True, window=0):
         raise ValueError(f"flash_fwd kernel is built for head dims {KERNEL_HEAD_DIMS}, got {dh}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    lib = _library()
     o = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        flash_fwd.meta_calls += 1
+        return o, lse
+    lib = _library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                              lse.data_ptr(), B, H, k.shape[1], L, dh, int(bool(causal)),
@@ -131,6 +137,7 @@ def flash_fwd(q, k, v, *, causal=True, window=0):
 
 
 flash_fwd.launches = 0
+flash_fwd.meta_calls = 0
 
 
 def _bad_mask(L, causal, window, device):
@@ -242,14 +249,17 @@ def flash_bwd_dq(q, k, v, lse, do, *, causal=True, window=0):
     tensors run ``flash_bwd_dq_plain``."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, lse, do, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
     _check(q, k, v)
     B, H, L, dh = q.shape
     _check_kernel_inputs("flash_bwd_dq", q, k, v, do, lse, None, dh, window)
-    lib = _bwd_library()
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
+    if q.device.type == "meta":
+        flash_bwd_dq.meta_calls += 1
+        return dq, delta
+    lib = _bwd_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_bwd_dq_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H,
@@ -263,6 +273,7 @@ def flash_bwd_dq(q, k, v, lse, do, *, causal=True, window=0):
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.meta_calls = 0
 
 
 def flash_bwd_dkv(q, k, v, lse, do, delta, *, causal=True, window=0):
@@ -271,13 +282,16 @@ def flash_bwd_dkv(q, k, v, lse, do, delta, *, causal=True, window=0):
     Hopper dK/dV kernel; CPU tensors run ``flash_bwd_dkv_plain``."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, lse, do, delta, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
     _check(q, k, v)
     B, H, L, dh = q.shape
     _check_kernel_inputs("flash_bwd_dkv", q, k, v, do, lse, delta, dh, window)
-    lib = _bwd_library()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.device.type == "meta":
+        flash_bwd_dkv.meta_calls += 1
+        return dk, dv
+    lib = _bwd_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_bwd_dkv_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -291,6 +305,7 @@ def flash_bwd_dkv(q, k, v, lse, do, delta, *, causal=True, window=0):
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.meta_calls = 0
 
 
 def flash_bwd(q, k, v, lse, do, *, causal=True, window=0):

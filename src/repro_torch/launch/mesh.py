@@ -14,8 +14,16 @@ pipeline stage devices of a rank) is another type: the GSPMD rules
 (``distributed.sharding``) and the grid train step
 (``train.train_loop.make_train_step(grid=)``) take a ``Grid``.
 
-Not carried over: the JAX module's production meshes (256 and 512 TPU
-chips) and its TPU hardware constants.
+``virtual_grid(dp, tp, pods)`` is one rank of a grid of any size with no
+processes behind it: its lines have their real sizes and this rank's
+index on each, no process group, and are marked virtual, so that the
+collectives (``distributed.collectives``) record their census and return
+tensors of the real shapes on the meta device without moving data. The
+dry run (``launch.dryrun``) traces one rank of the production grids so.
+
+Not carried over: the JAX module's production meshes of TPU chips and its
+TPU hardware constants; the dry run lays the same chip counts out for H100
+nodes (``launch.dryrun.MESHES``).
 """
 
 from __future__ import annotations
@@ -79,6 +87,27 @@ def _layout(dp: int, tp: int, pods: int):
     if pods > 1:
         return ("pod", "data", "model"), (pods, dp, tp)
     return ("data", "model"), (dp, tp)
+
+
+def virtual_grid(dp: int, tp: int, pods: int = 1, coords=None) -> Grid:
+    """The rank at ``coords`` (default: rank 0) of a (pods ×) dp × tp grid
+    with no processes: every line of its real size and this rank's index
+    on it, virtual (``Axis.virtual``), on the meta device."""
+    names, shape = _layout(dp, tp, pods)
+    coords = tuple(coords) if coords is not None else (0,) * len(shape)
+    if len(coords) != len(shape) or any(not 0 <= c < n for c, n in zip(coords, shape)):
+        raise ValueError(f"coords {coords} outside the grid {dict(zip(names, shape))}")
+    line = lambda size, index: Axis(size, index, None, size > 1, size > 1)
+    lines = {a: line(n, c) for a, n, c in zip(names, shape, coords)}
+    if pods > 1:
+        lines["dp"] = line(pods * dp, coords[0] * dp + coords[1])
+    else:
+        lines["dp"] = lines["data"]
+    world = 0
+    for c, n in zip(coords, shape):
+        world = world * n + c
+    lines["world"] = Axis(math.prod(shape), world, None, True, True)
+    return Grid(names, shape, coords, lines, torch.device("meta"))
 
 
 def _unravel(rank: int, shape: tuple) -> tuple:

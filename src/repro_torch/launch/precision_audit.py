@@ -30,19 +30,15 @@ card.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import pathlib
 import time
-from typing import Optional
 
 import torch
 
 from repro_torch.analysis import audit_cell, donated_storages, measured_peak, record_step
 from repro_torch.analysis.cost_model import card
 from repro_torch.analysis.source_lint import lint_paths
-from repro_torch.configs import get_config
-from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.collage import CollageAdamW
 from repro_torch.core.precision import BucketPolicy, PrecisionPolicy, parse_strategy
 from repro_torch.data.synthetic import make_batch_fn
@@ -50,6 +46,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import compression
 from repro_torch.distributed import sharding as shard_lib
+from repro_torch.launch.dryrun import accum_plan, cell_config
 from repro_torch.models.model import build_model
 from repro_torch.train import sharded
 
@@ -72,36 +69,9 @@ MODES = {
 D_OVERRIDES = dict(bucketed="0", smoke="1")
 PIPE_STAGES = 2          # the JAX script's (2, 4) pipe × data mesh
 
-# smoke-scale shapes of the audit (``launch/dryrun.py``'s AUDIT_SHAPES)
-AUDIT_SHAPES = {"train_smoke": ShapeConfig("train_smoke", 128, 32, "train")}
-
 RANKS_NOTE = ("one rank: a zero cell holds every bucket whole; the JAX script's eight "
               "host devices hold 1/8 each, so per-rank bytes differ by that factor and "
               "the totals compare")
-
-
-def cell_config(arch: str, shape_name: str, overrides: Optional[dict] = None):
-    """Per-cell model-config adjustments (``launch/dryrun.py``'s rules)."""
-    overrides = overrides or {}
-    cfg = get_config(arch, smoke=overrides.get("smoke", "0") == "1")
-    shape = AUDIT_SHAPES[shape_name]
-    if shape.seq_len >= 8192 and shape.mode != "decode":
-        cfg = dataclasses.replace(cfg, attention_impl="flash")
-    if cfg.family == "hybrid":
-        cfg = dataclasses.replace(cfg, ssm_chunk=16)
-    return cfg, shape
-
-
-def accum_plan(cfg, shape, n_dp: int) -> tuple:
-    """(grad_accum_steps, microbatch_global_rows): ≤ ~2 rows a device for
-    wide models under remat (``launch/dryrun.py``'s plan)."""
-    rows_per_dev = 4 if cfg.d_model <= 2048 else (2 if cfg.d_model <= 5376 else 1)
-    if shape.seq_len > 4096:
-        rows_per_dev = 1
-    mb_global = max(rows_per_dev * n_dp, 1)
-    n_acc = max(shape.global_batch // mb_global, 1)
-    mb_global = shape.global_batch // n_acc
-    return n_acc, mb_global
 
 
 def _chunked(batch: dict, n_acc: int) -> dict:
@@ -129,7 +99,7 @@ def audit_step(step, init, batches, *, strategy: str, device, donate: bool,
                       n_dp=n_dp)
     cell["n_ops"], cell["n_backward_ops"] = len(trace.ops), trace.n_backward_ops
     cell["kernel_launches"] = {}
-    for call in trace.kernels:
+    for call in (c for c in trace.kernels if c.kernel):
         cell["kernel_launches"][call.name] = cell["kernel_launches"].get(call.name, 0) + 1
     cell["measured_step_ms"] = None
     if dev.type == "cuda":

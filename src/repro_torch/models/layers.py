@@ -102,8 +102,8 @@ def matmul_f32(a, b, out_dtype=None):
     pair runs as one bf16 product with f32 output (``_MatmulF32``). The
     CPU has no ``mm.dtype`` kernel, so there (and for f32 operands) both
     operands are upcast and multiplied in f32: the same products, summed
-    in another order."""
-    if a.is_cuda and a.dtype != ACC:
+    in another order. A dry run's meta tensors take the card's path."""
+    if a.device.type in ("cuda", "meta") and a.dtype != ACC:
         return _MatmulF32.apply(a, b, out_dtype)
     out = torch.matmul(a.to(ACC), b.to(ACC))
     return out if out_dtype is None else out.to(out_dtype)

@@ -1,5 +1,6 @@
-"""Import guard: the port and chip_smoke.py import nothing of JAX, ml_dtypes
-or the JAX package, and the port serves and trains (bucketed and on the
+"""Import guard: the port, chip_smoke.py and the port's examples
+(``examples/torch_*.py``) import nothing of JAX, ml_dtypes or the JAX
+package, and the port serves and trains (bucketed and on the
 tree layout, checkpointing, resuming and rematerialising) with JAX made
 unimportable."""
 
@@ -29,7 +30,11 @@ def _imported_roots(path: pathlib.Path):
 
 
 def test_no_forbidden_imports():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    assert [f.name for f in examples] == ["torch_fault_tolerant_training.py",
+                                          "torch_quickstart.py", "torch_serve_demo.py"]
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"] \
+        + examples
     assert len(files) > 10
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for line, root in _imported_roots(f) if root in FORBIDDEN]
