@@ -456,7 +456,7 @@ def sublayer_kind(names) -> Optional[str]:
 
 
 def materialize(params, specs, grid, head_dim: int, over_dp: bool = True,
-                per_layer: bool = False):
+                per_layer: bool = False, then=None):
     """The tensors a rank's forward reads, from its parameter blocks, with
     autograd to the blocks: each dp-sharded dim all-gathered over dp (its
     gradient reduce-scattered) and each dp-replicated leaf's gradient
@@ -491,7 +491,11 @@ def materialize(params, specs, grid, head_dim: int, over_dp: bool = True,
     numbers are the same either way. The train step takes it (a layer's
     gathered weights live for its forward and its backward only); serving
     does not (a prefill and its decode steps read the same gathered
-    weights, gathered once)."""
+    weights, gathered once).
+
+    ``then(path, x)``: applied to each leaf as soon as it is gathered
+    (``materialize_serving``'s cut), so that no more than one whole leaf
+    it replaces is alive at once."""
     by_path = dict(named_leaves(specs))
     siblings: dict = {}
     for path in by_path:
@@ -550,8 +554,55 @@ def materialize(params, specs, grid, head_dim: int, over_dp: bool = True,
             return DeferredStack(x, functools.partial(run, lops))
         if per_layer and gathers and _last_name(path) in ("embed", "lm_head"):
             return Deferred(x, functools.partial(run, ops))
-        return run(ops, x)
+        return run(ops, x) if then is None else then(path, run(ops, x))
     return map_leaves(one, params)
+
+
+def _cache_split(kind: str, cfg, tp: int) -> bool:
+    """Whether ``cache_shardings`` splits the serving cache of a sublayer
+    kind over "model" (the KV heads; Mamba's channels; RWKV's heads)."""
+    if kind == "attn":
+        return cfg.n_kv_heads % tp == 0
+    if kind == "mamba":
+        return (cfg.ssm_expand * cfg.d_model) % tp == 0
+    if kind == "rwkv_tmix":
+        return (cfg.d_model // cfg.rwkv_head_dim) % tp == 0
+    return False
+
+
+def materialize_serving(params, specs, grid, cfg):
+    """The tensors a serving rank's forward reads: ``materialize``'s, then
+    every decoder sublayer that holds whole the heads or channels its cache
+    holds a block of (``tp_mode`` "mlponly": self- and cross-attention;
+    "none": those, Mamba and RWKV time-mix) cut to what ``materialize``
+    gives this rank under "full": each leaf the "full" rule splits over
+    "model" cut to this rank's block, but for Mamba's ``in_proj`` (gathered
+    whole under "full"); the leaves applied whole (the q/k norms, RWKV's
+    ``mu``, ``w_a``, ``w0``, ``u``, ``ln_scale``) stay whole. Each block is
+    cut once, as its leaf is gathered, into a tensor of its own (a strided
+    view would be copied by every product). The sublayer then runs as under
+    "full": on its block, its output summed over "model". The MLP, the MoE
+    experts, RWKV's channel-mix and the encoder have no cache split over
+    "model" and stay as the tp_mode stores them. Under "full", and on one
+    rank, nothing is cut."""
+    by_path = dict(named_leaves(specs))
+    names: dict = {}
+    for path in by_path:
+        names.setdefault(path[:path.rfind("[")], set()).add(_last_name(path))
+
+    def cut(path, x):
+        parent = path[:path.rfind("[")]
+        kind = sublayer_kind(names.get(parent, ()))
+        if kind is None or "['decoder']" not in path or not _cache_split(kind, cfg, grid.tp):
+            return x
+        rule = SPLITS[kind]
+        if "model" in by_path.get(f"{parent}[{rule.mark!r}]", P()):
+            return x                              # already this rank's block
+        full = param_spec(path, x.shape, grid, fsdp=False)
+        if "model" not in full or _last_name(path) in rule.gathered:
+            return x
+        return local_block(x, full, grid)
+    return materialize(params, specs, grid, cfg.head_dim_, then=cut if grid.tp > 1 else None)
 
 
 # ------------------------------------------------- FSDP's deferred gathers

@@ -41,9 +41,14 @@ launches (``analysis.trace``, lean). What the reference's ideas become:
 * Attention: where the reference's cell picks its blocked "flash"
   implementation (train and prefill at L ≥ 8192), the H100 cell takes the
   hand-written flash kernels (``flash_min_len`` = L), as the card would.
+* Serving: prefill and decode cells read ``sharding.materialize_serving``
+  under every ``tpmode``, as a real rank does (the sublayers whose cache
+  is split over "model" on the rank's blocks); a cache write of the wrong
+  shape raises on the meta device as on the CPU.
 * Refusals: a cell that the grid refuses (a head split by
-  ``train.grid.check_grid``, serving a ROADMAP item 7b part) is written as
-  ``{"refused": <the message>}`` beside the reference's ``skipped``.
+  ``train.grid.check_grid``, a ROADMAP item 7b part still to port) is
+  written as ``{"refused": <the message>}`` beside the reference's
+  ``skipped``.
 * Device: traced on the meta device by design, as the reference lowers on
   host devices; where ``cost_model.card()`` finds a card the report names
   it and its power limit, elsewhere it says "modelled, H100 SXM data sheet".
@@ -332,7 +337,7 @@ def cell_step(cfg, shape, grid, precision: str = "C", fsdp: bool = True,
 
         def prefill(local, lb):
             with torch.no_grad(), tf.activation_sharding(sharder):
-                mp = sh.materialize(local, pspecs, grid, cfg.head_dim_)
+                mp = sh.materialize_serving(local, pspecs, grid, cfg)
                 return model.prefill(mp, lb, cache_len=shape.seq_len)
         return {"fn": prefill, "inputs": (local, lb), "state_bytes": sb, "meta": meta}
     state = model.init_decode_state(shape.global_batch, shape.seq_len, device=device)
@@ -345,7 +350,7 @@ def cell_step(cfg, shape, grid, precision: str = "C", fsdp: bool = True,
 
     def decode(local, inputs):
         with torch.no_grad(), tf.activation_sharding(sharder):
-            mp = sh.materialize(local, pspecs, grid, cfg.head_dim_)
+            mp = sh.materialize_serving(local, pspecs, grid, cfg)
             return model.decode_step(mp, inputs[0], inputs[1])
     return {"fn": decode, "inputs": (local, (lstate, ltok)), "state_bytes": sb, "meta": meta}
 

@@ -34,8 +34,8 @@ import torch
 
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.flash_attention import flash_attention as kflash
-from repro_torch.models.layers import (dense_init, matmul, matmul_f32, out_proj, rms_norm,
-                                      rope_apply, rope_freqs, sharder)
+from repro_torch.models.layers import (check_write, dense_init, matmul, matmul_f32, out_proj,
+                                      rms_norm, rope_apply, rope_freqs, sharder)
 
 NEG_INF = -1e30
 
@@ -275,6 +275,9 @@ def decode_attention(p, x, cfg, cache, pos, *, window=0, active=None):
     start = sh.cache_span(S * sh.data.size)[0] if cp else 0   # this rank's span of the cache
     positions = pos[:, None]                         # (B, 1)
     q, k_new, v_new = _qkv(p, x, x, cfg, positions, positions)
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        check_write(f"decode {name}", new[:, 0], (c.shape[0],) + tuple(c.shape[2:]))
     rows = torch.arange(B, device=x.device)
     if active is None and not cp:
         cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
@@ -350,6 +353,7 @@ def verify_attention(p, x, cfg, cache, pos, *, window=0, active=None):
     wpos = positions % S
     for name, new in (("k", k_new), ("v", v_new)):
         c = cache[name]
+        check_write(f"verify {name}", new, (c.shape[0], W) + tuple(c.shape[2:]))
         c[rows, wpos] = torch.where(live[..., None, None], new.to(c.dtype), c[rows, wpos])
     scores = _gqa_scores(q, cache["k"], cfg)         # (B,hk,g,W,S)
     kj = torch.arange(S, device=x.device)[None, None, :]

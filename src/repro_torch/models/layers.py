@@ -29,6 +29,20 @@ def sharder():
     return SHARDER.get()
 
 
+def check_write(what: str, value, target_shape):
+    """Raise ``ValueError`` unless an in-place cache or state write's value
+    has its target's shape. The write would broadcast a dim of one and, on
+    the meta device (a dry run), take any shape unchecked: with this check
+    every device refuses what the CPU refuses. On a grid a sublayer must
+    hold this rank's block of the heads or channels that
+    ``cache_shardings`` splits over "model" (served from
+    ``distributed.sharding.materialize_serving``)."""
+    got, want = tuple(value.shape), tuple(target_shape)
+    if got != want:
+        raise ValueError(f"{what}: a write of {got} into a cache slot of {want}: the sublayer's "
+                         f"heads or channels are not its cache's")
+
+
 def chunk_pad(length: int, chunk: int) -> tuple[int, int]:
     """(chunk, right-pad) so chunked causal mixers handle arbitrary
     (serving) lengths: pad the sequence up to a chunk multiple and slice the

@@ -40,7 +40,8 @@ Randomness comes from an explicit ``torch.Generator``.
 
 On a grid of ranks (``models.transformer.activation_sharding`` with a
 ``distributed.sharding`` sharder) every method is this rank's program over
-its blocks (``distributed.sharding.materialize``) and its batch rows: the
+its blocks (``distributed.sharding.materialize``; for serving
+``materialize_serving``, under every tp_mode) and its batch rows: the
 embedding and the head are vocab-parallel when the vocab divides "model"
 (``_head`` gives this rank's block of the logits; the tied head is the
 embedding's block transposed), the loss is the vocab-parallel cross

@@ -14,7 +14,9 @@ over the group's layers as the JAX package's scan carries it.
 Caches are updated in place: attention K/V rows at the scatter site
 (``attention.decode_attention``), the recurrent states (mamba ``h``/
 ``conv``, rwkv ``S``/``last_x``) by ``_freeze_rows``, which writes the
-advanced state into the cache and keeps inactive rows bit-identical.
+advanced state into the cache and keeps inactive rows bit-identical. Every
+such write first checks its value's shape against its slot's
+(``layers.check_write``), on every device.
 
 Activation sharding: the model code is grid-agnostic; ``activation_sharding``
 installs a grid's sharder (``distributed.sharding.make_activation_sharder``)
@@ -27,8 +29,10 @@ sequence) and its partial output (f32, ``layers.out_proj``: summed over
 sequence, then rounded once to the residual's dtype). Off a grid both are
 the identity. A sublayer is split over "model" when this rank holds a block
 of its heads, hidden units, experts (MoE) or channels (Mamba, RWKV:
-``_split_over_model``); its recurrent caches then hold this rank's channels
-or heads (``cache_shardings``), prefill included.
+``_split_over_model``); its caches then hold this rank's heads or channels
+(``cache_shardings``), prefill included. A serving rank holds such a block
+under every tp_mode (``sharding.materialize_serving`` cuts it where the
+tp_mode stores the sublayer whole).
 """
 
 from __future__ import annotations
@@ -46,8 +50,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (ACC, SHARDER, dense_init, matmul_f32, mlp_apply,
-                                      rms_norm, rms_norm_init, sharder)
+from repro_torch.models.layers import (ACC, SHARDER, check_write, dense_init, matmul_f32,
+                                      mlp_apply, rms_norm, rms_norm_init, sharder)
 
 RECURRENT = ("mamba", "rwkv_tmix", "rwkv_cmix")
 
@@ -249,6 +253,7 @@ def _freeze_rows(new, cache, active):
     the attention KV write is masked at its scatter site instead."""
     for name, t in cache.items():
         n = new[name]
+        check_write(f"state {name}", n, t.shape)
         if active is not None:
             n = torch.where(active.reshape(active.shape + (1,) * (n.dim() - 1)), n, t)
         t.copy_(n)
@@ -371,25 +376,20 @@ def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len, memory=N
             if s.kind == "attn":
                 hn = rms_norm(x, p["norm"], cfg.norm_eps)
                 _, k, v = attn._qkv(p, hn, hn, cfg, positions, positions)
-                if k.shape[2] != caches[key]["k"].shape[3]:
-                    raise ValueError(f"a cache of {caches[key]['k'].shape[3]} KV heads a rank for "
-                                     f"attention over {k.shape[2]}: serving on a grid needs "
-                                     f"tp_mode 'full' (ROADMAP.md Queue 1 item 7b)")
                 lo = 0 if sharder() is None else sharder().cache_span(cache_len)[0]
                 n = max(0, min(caches[key]["k"].shape[2], L - lo))   # this rank's span
-                caches[key]["k"][layer, :, :n] = k[:, lo:lo + n]
-                caches[key]["v"][layer, :, :n] = v[:, lo:lo + n]
+                for name, t in (("k", k), ("v", v)):
+                    c = caches[key][name][layer, :, :n]
+                    check_write(f"prefill {name}", t[:, lo:lo + n], c.shape)
+                    c.copy_(t[:, lo:lo + n])
             elif s.kind == "cross_attn":
                 for name, t in attn.cross_kv(p, memory, cfg).items():
+                    check_write(f"cross-attention {name}", t, caches[key][name].shape[1:])
                     caches[key][name][layer] = t
             if s.kind in RECURRENT:
                 x, state = _mixer_prefill(p, x, s, cfg)
                 for name, t in state.items():
-                    if t.shape != caches[key][name].shape[1:]:
-                        raise ValueError(f"a {s.kind} state {name} of {tuple(t.shape)} for a cache "
-                                         f"of {tuple(caches[key][name].shape[1:])}: serving on "
-                                         f"a grid needs tp_mode 'full' (ROADMAP.md Queue 1 item "
-                                         f"7b)")
+                    check_write(f"{s.kind} state {name}", t, caches[key][name].shape[1:])
                     caches[key][name][layer] = t
             else:
                 x, _ = sub_apply(p, x, s, cfg, memory=memory)

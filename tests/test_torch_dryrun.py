@@ -16,7 +16,8 @@ state's residual rows across bucket layouts.
   return tensors of the real collective's shape on the meta device. Its
   census, entry by entry (op, role, dtype, bytes), equals that of each
   rank of a real (2, 2) gloo grid (four processes) for the tree C train
-  step, the bucketed step, prefill and decode, and its state blocks are
+  step, the bucketed step, prefill and decode (under tp_mode mlponly and
+  none too, rwkv6's decode among them), and its state blocks are
   ``shard_state``'s.
 * On a one-rank grid the meta trace of a step equals the CPU trace of the
   same step: FLOPs, modelled peak and the kernel calls (the CPU's plain
@@ -225,6 +226,12 @@ CENSUS_CASES = {
     "prefill": ("granite-3-2b", (16, 4, "prefill"), {}, 1),
     "decode": ("granite-3-2b", (32, 4, "decode"), {}, 1),
     "decode_cp": ("granite-3-2b", (32, 1, "decode"), {}, 1),
+    # serving under the other tp_modes: the attention (and rwkv6's time-mix)
+    # on the rank's block, cut from the whole weights the rules store
+    "prefill_mlponly": ("granite-3-2b", (16, 4, "prefill"), {"tpmode": "mlponly"}, 1),
+    "decode_mlponly": ("granite-3-2b", (32, 4, "decode"), {"tpmode": "mlponly"}, 1),
+    "decode_none": ("granite-3-2b", (32, 4, "decode"), {"tpmode": "none"}, 1),
+    "decode_none_rwkv6": ("rwkv6-1.6b", (32, 4, "decode"), {"tpmode": "none"}, 1),
 }
 
 

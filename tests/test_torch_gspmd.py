@@ -24,10 +24,15 @@ steps, the serving):
   ``sp=True`` equal to ``sp=False`` within 1e-5 with its census roles;
 * SR on the grid bit-identical to the port's one-rank update given the
   same gradient, and the fused update (its plain version here) too;
-* serving, granite on (2,2): prefill and ``decode_step`` logits against
-  the JAX functions (3e-2 in bf16, 1e-5 in f32), the context-parallel
-  decode (a batch of one, the cache length over "data"), greedy
-  ``generate`` tokens equal to the JAX ones in f32;
+* serving, granite on (2,2) under tp_mode full, mlponly and none
+  (``sharding.materialize_serving``): prefill and ``decode_step`` logits
+  against the JAX functions (3e-2 in bf16, 1e-5 in f32), the
+  context-parallel decode (a batch of one, the cache length over "data"),
+  greedy ``generate`` tokens equal to the JAX ones in f32, mlponly's
+  logits and tokens equal to full's bit for bit, the prefill's caches
+  within 1e-6 of the one-rank port's in f32;
+* a cache write of the wrong shape raises on the CPU and on the meta
+  device alike;
 * the one build refusal left: ``psum_axis`` (the shard_map engine's).
   MoE, rwkv6, jamba and the bucketed layout run on the grid:
   tests/test_torch_gspmd_families.py; the frontends, remat, microbatches,
@@ -163,30 +168,47 @@ def grid_22_cases(g, out):
                    zip(sh.named_leaves(train_loop.TrainState(want_p, want_o)),
                        sh.named_leaves(got)))
         out[name] = {"bit_identical": same, "n": len(sh.named_leaves(got))}
-    # serving
+    # serving under every tp_mode (keys of "full" without a prefix), and the
+    # one-rank port's prefill caches
     for dtype in ("bfloat16", "float32"):
         model = build_model(T._cfg(arch, dtype))
         params = inp["params"][arch + dtype]
-        pspecs = sh.state_shardings(params, g)
         toks = inp["serve_tokens"]
         res = {}
-        for cp in (False, True):
-            shd = sh.make_activation_sharder(g, context_parallel=cp)
-            with torch.no_grad(), tf.activation_sharding(shd):
-                mp = sh.materialize(sh.local_tree(params, pspecs, g), pspecs, g, model.cfg.head_dim_)
-                batch = {"tokens": toks[:1] if cp else toks}
-                bspec = sh.batch_shardings(batch, g)
-                rows = bspec["tokens"][0] if bspec["tokens"] else None
-                lb = sh.local_tree(batch, bspec, g)
-                logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
-                res[f"prefill{int(cp)}"] = np_(sh.gather_block(logits, sh.P(rows, None, "model"), g))
-                tok = sh.local_block(inp["next_tok"][:1] if cp else inp["next_tok"],
-                                     sh.P(rows, None), g)
-                logits, st = model.decode_step(mp, st, tok)
-                res[f"decode{int(cp)}"] = np_(sh.gather_block(logits, sh.P(rows, None, "model"), g))
-                if not cp:
-                    gen, _ = model.generate(mp, lb, T.GEN)
-                    res["generate"] = sh.gather_block(gen, sh.P(rows, None), g).tolist()
+        for mode in sh.TP_MODES:
+            pspecs = sh.state_shardings(params, g, tp_mode=mode)
+            key = "" if mode == "full" else mode + "_"
+            for cp in (False, True):
+                whole = model.init_decode_state(1 if cp else len(toks), T.CACHE, device="meta")
+                cspecs = sh.cache_shardings(whole.layers, g, cp)
+                shd = sh.make_activation_sharder(g, context_parallel=cp)
+                with torch.no_grad(), tf.activation_sharding(shd):
+                    mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g,
+                                                model.cfg)
+                    batch = {"tokens": toks[:1] if cp else toks}
+                    bspec = sh.batch_shardings(batch, g)
+                    rows = bspec["tokens"][0] if bspec["tokens"] else None
+                    lb = sh.local_tree(batch, bspec, g)
+                    logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
+                    vocab = "model" if logits.shape[-1] < model.cfg.vocab_size else None
+                    res[f"{key}prefill{int(cp)}"] = np_(sh.gather_block(
+                        logits, sh.P(rows, None, vocab), g))
+                    if dtype == "float32":
+                        res[f"{key}cache{int(cp)}"] = leaves(sh.gather_tree(st.layers, cspecs, g))
+                    tok = sh.local_block(inp["next_tok"][:1] if cp else inp["next_tok"],
+                                         sh.P(rows, None), g)
+                    logits, st = model.decode_step(mp, st, tok)
+                    res[f"{key}decode{int(cp)}"] = np_(sh.gather_block(
+                        logits, sh.P(rows, None, vocab), g))
+                    if not cp:
+                        gen, _ = model.generate(mp, lb, T.GEN)
+                        res[f"{key}generate"] = sh.gather_block(gen, sh.P(rows, None), g).tolist()
+        if RANK == 0 and dtype == "float32":
+            with torch.no_grad():
+                for cp in (False, True):
+                    _, st = model.prefill(params, {"tokens": toks[:1] if cp else toks},
+                                          cache_len=T.CACHE)
+                    res[f"one_rank_cache{int(cp)}"] = leaves(st.layers)
         out["serve_" + dtype] = res
 
 for DP, TP in sorted(T.GRIDS, key=lambda g: -g[0] * g[1]):
@@ -425,19 +447,77 @@ def test_greedy_generate_matches(runs):
     assert grids[(2, 2)]["serve_float32"]["generate"] == refs["serve_float32"]["generate"]
 
 
-def test_serving_with_attention_whole_refuses():
-    """Serving under tp_mode mlponly/none (attention whole on every rank
-    beside a cache whose heads ``cache_shardings`` splits over "model")
-    raises, naming the roadmap item."""
+SERVE_MODES = ("mlponly", "none")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["prefill0", "decode0", "prefill1", "decode1"])
+@pytest.mark.parametrize("mode", SERVE_MODES)
+def test_serving_under_tp_mode_matches(runs, mode, kind, dtype):
+    """Serving under tp_mode mlponly and none (``materialize_serving``: the
+    attention on this rank's heads, as its cache): prefill and decode, TP
+    (cp 0) and context-parallel (cp 1), against the JAX functions, whose
+    serving does not depend on the tp_mode."""
+    grids, refs = runs
+    got = grids[(2, 2)]["serve_" + dtype][f"{mode}_{kind}"]
+    want = refs["serve_" + dtype][kind]
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mode", SERVE_MODES)
+def test_greedy_generate_under_tp_mode_matches(runs, mode):
+    grids, refs = runs
+    assert grids[(2, 2)]["serve_float32"][f"{mode}_generate"] == refs["serve_float32"]["generate"]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mlponly_serving_equals_full_bit_for_bit(runs, dtype):
+    """Under mlponly a rank serves the same products on the same blocks as
+    under full (the attention cut to the full rule's blocks, the MLP split
+    as under full): the logits and greedy tokens are equal bit for bit."""
+    res = runs[0][(2, 2)]["serve_" + dtype]
+    for kind in ("prefill0", "decode0", "prefill1", "decode1"):
+        np.testing.assert_array_equal(res["mlponly_" + kind], res[kind], err_msg=kind)
+    assert res["mlponly_generate"] == res["generate"]
+
+
+@pytest.mark.parametrize("cp", [0, 1])
+@pytest.mark.parametrize("mode", ("full",) + SERVE_MODES)
+def test_prefill_cache_blocks_match_one_rank(runs, mode, cp):
+    """The prefill's caches, the rank's blocks gathered (heads over "model",
+    with cp 1 the length over "data"), within 1e-6 of the one-rank port's
+    caches in f32."""
+    res = runs[0][(2, 2)]["serve_float32"]
+    got = res[f"cache{cp}" if mode == "full" else f"{mode}_cache{cp}"]
+    want = res[f"one_rank_cache{cp}"]
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_cache_write_of_wrong_shape_raises(device):
+    """A sublayer that holds other heads than its cache (here attention
+    whole beside a cache of a rank's KV heads, as serving under mlponly
+    without ``materialize_serving`` would be) raises the same ValueError,
+    naming both shapes, on the CPU and on the meta device (where an index
+    write checks nothing), at prefill and at the decode step."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import transformer as tf
 
     model = build_model(get_config("granite-3-2b", smoke=True))
-    params = model.init(0, device="cpu")
+    params = model.init(0, device=device)
+    toks = torch.zeros((2, 8), dtype=torch.int64, device=device)
+    msg = r"a write of \(2, 8, 2, 16\) into a cache slot of \(2, 8, 1, 16\)"
     with torch.no_grad(), tf.activation_sharding(
             sh.make_activation_sharder(mesh_lib.grid_shape(2, 2))):
-        with pytest.raises(ValueError, match=r"ROADMAP\.md Queue 1 item 7b"):
-            model.prefill(params, {"tokens": torch.zeros((2, 8), dtype=torch.int64)}, cache_len=16)
+        with pytest.raises(ValueError, match=r"prefill k: " + msg):
+            model.prefill(params, {"tokens": toks}, cache_len=16)
+        state = model.init_decode_state(2, 16, device=device)
+        with pytest.raises(ValueError, match=r"decode k: a write of \(2, 2, 16\) into a cache "
+                                             r"slot of \(2, 1, 16\)"):
+            model.decode_step(params, state, toks[:, :1])
 
 
 def test_context_parallel_cross_caches_refuse():

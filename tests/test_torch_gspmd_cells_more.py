@@ -17,9 +17,10 @@ on a (2, 2) grid of gloo ranks:
   bytes alive at once never past two layers' worth plus the embedding and
   head, under remat "none", "full" and "dots", beside the up-front figure
   (every leaf gathered at the step's start, as before this slice);
-* serving the frontends on the grid (``tp_mode`` "full"): prefill and
-  decode logits against the port's one-rank model (1e-5 in f32, 3e-2 in
-  bf16) and f32 greedy tokens equal;
+* serving the frontends on the grid (``tp_mode`` "full", and seamless
+  under "mlponly": its self- and cross-attention caches on the rank's
+  heads): prefill and decode logits against the port's one-rank model
+  (1e-5 in f32, 3e-2 in bf16) and f32 greedy tokens equal;
 * F6 (a divergence by design): the port's tree update fed the JAX step's
   f32 gradient of rwkv6 and jamba is bit-identical to the JAX update run
   op by op; the port's own gradient is within 1e-4 of each leaf's largest,
@@ -37,6 +38,8 @@ from test_torch_gspmd_cells import (BF16_METRIC_RTOL, BUCKETED, F6_ARCHS, F6_GRA
 
 
 _RANKS = C._PRELUDE + """
+import test_torch_gspmd_cells_more as M
+SERVE_MODES = M.SERVE_MODES
 # the bucketed layout (granite bf16, fused update)
 model = build_model(T._cfg(T.GRANITE, "bfloat16"))
 params = inp["params"]["bucketed"]
@@ -124,16 +127,17 @@ for name, (arch, over) in T.LIVE.items():
     out["live_" + name] = r
 coll.all_gather_dim = _gather
 
-# serving the frontends
-for sname, (arch, over) in T.SERVE.items():
+# serving the frontends (seamless also under mlponly: SERVE_MODES)
+for sname, mode in [(n, "full") for n in T.SERVE] + list(SERVE_MODES):
+    arch, over = T.SERVE[sname]
     for dtype in ("bfloat16", "float32"):
         model = build_model(T._cfg(arch, dtype, over))
         params = inp["params"][f"serve_{sname}_{dtype}"]
         batch = inp["serve"][f"serve_{sname}_{dtype}"]
-        pspecs = sh.state_shardings(params, g)
+        pspecs = sh.state_shardings(params, g, tp_mode=mode)
         shd = sh.make_activation_sharder(g)
         with torch.no_grad(), tf.activation_sharding(shd):
-            mp = sh.materialize(sh.local_tree(params, pspecs, g), pspecs, g, model.cfg.head_dim_)
+            mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g, model.cfg)
             lb = shd.local_batch(batch)
             logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
             vocab = sh.P("data", None, "model") if logits.shape[-1] < model.cfg.vocab_size \\
@@ -145,6 +149,9 @@ for sname, (arch, over) in T.SERVE.items():
             if dtype == "float32":
                 gen, _ = model.generate(mp, lb, T.GEN)
                 r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
+        if mode != "full":
+            out[f"serve_{sname}_{mode}_{dtype}"] = r
+            continue
         if RANK == 0:
             with torch.no_grad():
                 logits, st = model.prefill(params, batch, cache_len=T.CACHE)
@@ -162,6 +169,10 @@ dist.destroy_process_group()
 
 # F6 in a process an arch
 JAX_REFS = [("f6", arch) for arch in F6_ARCHS]
+# (SERVE case, tp_mode) served besides under "full": seamless's self- and
+# cross-attention on the rank's heads (its KV 4 over model 2), the encoder
+# whole (it has no cache), held to the same one-rank references
+SERVE_MODES = [("seamless", "mlponly")]
 
 
 @pytest.fixture(scope="module")
@@ -218,6 +229,25 @@ def test_frontend_serving_matches_one_rank(runs, name, kind, dtype):
 def test_frontend_greedy_generate_matches_one_rank(runs, name):
     r = runs[0][f"serve_{name}_float32"]
     assert r["generate"] == r["one_rank"]["generate"]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("name,mode", SERVE_MODES)
+def test_frontend_serving_under_tp_mode_matches_one_rank(runs, name, mode, kind, dtype):
+    """The cross-attention caches on the rank's heads: prefill and decode
+    logits against the port's one-rank model (1e-5 in f32, 3e-2 in
+    bf16)."""
+    r = runs[0][f"serve_{name}_{mode}_{dtype}"]
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(r[kind], runs[0][f"serve_{name}_{dtype}"]["one_rank"][kind],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name,mode", SERVE_MODES)
+def test_frontend_greedy_generate_under_tp_mode_matches_one_rank(runs, name, mode):
+    r = runs[0][f"serve_{name}_{mode}_float32"]
+    assert r["generate"] == runs[0][f"serve_{name}_float32"]["one_rank"]["generate"]
 
 @pytest.mark.parametrize("arch", F6_ARCHS)
 def test_f6_update_bit_identical_on_the_jax_gradient(runs, arch):

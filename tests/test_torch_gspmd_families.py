@@ -34,7 +34,8 @@ functions, computed meanwhile in processes of their own:
   drops slots), rwkv6 and jamba: prefill and ``decode_step`` logits
   against the JAX functions (3e-2 in bf16, jitted as the train step is,
   where excess precision flips bf16 routes; 1e-5 in f32), greedy
-  ``generate`` tokens equal to the JAX ones in f32; and qwen3-moe served a
+  ``generate`` tokens equal to the JAX ones in f32; the three in f32 under
+  tp_mode "none" too, against the same JAX functions; and qwen3-moe served a
   batch of 3 on dp 2 (rows replicated over dp) against the port's one-rank
   model; a MoE forward whose rows' split over dp is unknown raises;
 * the bucketed layout, granite bf16, fused C and SR (the update's plain
@@ -85,6 +86,11 @@ TRAIN = {
 # their positions count the other dp rank's rows
 SERVE = {"qwen3": (QWEN, {}), "qwen3_cf1": (QWEN, {"capacity_factor": 1.0}), "rwkv6": (RWKV, {}),
          "jamba": (JAMBA, {})}
+# served in f32 under tp_mode "none" (``materialize_serving``: RWKV's heads,
+# Mamba's channels and the attention on the rank's block, as its cache; the
+# MoE experts and the MLPs whole), held to the JAX references of SERVE's
+# case of the same name (the JAX serving does not depend on the tp_mode)
+SERVE_NONE = ("rwkv6", "jamba", "qwen3")
 BUCKETED = {"bucketed_C": Strategy.C_COLLAGE_PLUS, "bucketed_SR": Strategy.SR}
 BUCKET_ARCH = ("granite-3-2b", "bfloat16")
 BF16_METRIC_RTOL = 2e-3
@@ -195,6 +201,24 @@ for sname, (arch, over) in T.SERVE.items():
                 gen, _ = model.generate(mp, lb, T.GEN)
                 r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
         out[f"serve_{sname}_{dtype}"] = r
+
+for sname in T.SERVE_NONE:
+    arch, over = T.SERVE[sname]
+    model = build_model(T._cfg(arch, "float32", over))
+    params = inp["params"][arch + "float32"]
+    pspecs = sh.state_shardings(params, g, tp_mode="none")
+    shd = sh.make_activation_sharder(g)
+    with torch.no_grad(), tf.activation_sharding(shd):
+        mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g, model.cfg)
+        lb = shd.local_batch({"tokens": inp["serve_tokens"]})
+        logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
+        vocab = sh.P("data", None, None)             # the head whole under "none"
+        r = {"prefill": np_(sh.gather_block(logits, vocab, g))}
+        tok = sh.local_block(inp["next_tok"], sh.P("data", None), g)
+        r["decode"] = np_(sh.gather_block(model.decode_step(mp, st, tok)[0], vocab, g))
+        gen, _ = model.generate(mp, lb, T.GEN)
+        r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
+    out[f"serve_{sname}_none"] = r
 
 # qwen3-moe (capacity factor 1) served a batch of 3: the rows do not divide
 # dp 2, so they are replicated and each dp rank routes them as one rank does
@@ -457,6 +481,19 @@ def test_greedy_generate_matches(runs, name):
     got, refs = runs
     key = f"serve_{name}_float32"
     assert got[key]["generate"] == refs[key]["generate"]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "generate"])
+@pytest.mark.parametrize("name", SERVE_NONE)
+def test_serving_under_tp_mode_none_matches(runs, name, kind):
+    """f32 serving under tp_mode "none" against the JAX functions: logits
+    within 1e-5, greedy tokens equal."""
+    got, refs = runs
+    r, want = got[f"serve_{name}_none"][kind], refs[f"serve_{name}_float32"][kind]
+    if kind == "generate":
+        assert r == want
+    else:
+        np.testing.assert_allclose(r, want, rtol=1e-5, atol=1e-5)
 
 
 def test_moe_serving_with_replicated_rows(runs):
