@@ -8,8 +8,10 @@ Strategy: FSDP × TP over a ``launch.mesh.Grid`` of ranks.
   * FSDP ("data", with "pod" when the pod axis plays dp): the other large
     dim of every weight. Optimizer state (δθ, m, v, master) shards as its
     parameter: the update is elementwise, so it needs no collective.
-  * Sequence: the context-parallel decode splits the KV cache length over
-    "data"; activations split the batch over the dp axes.
+  * Sequence: sequence parallelism (``sp``) splits the residual stream's
+    positions over "model" in the train forward and a serving prefill; the
+    context-parallel decode splits the KV cache length over "data";
+    activations split the batch over the dp axes.
 
 The rules go by name (the last named component of a leaf's path) and by
 rank (a leading layer-stack dim gets a None): one table for every family.
@@ -718,13 +720,22 @@ class GridSharder:
     A sublayer split over "model" (``tp``) reads a replicated input and
     leaves a partial output: without sequence parallelism the input is the
     identity whose gradient is summed over "model", the output is summed
-    over "model". With it (``seq``, when the train step's L divides tp)
-    the residual stream holds this rank's L/tp tokens: the input is
-    all-gathered over the sequence (its gradient reduce-scattered), the
-    output reduce-scattered, the norms run on local tokens and their
-    weights' gradients are summed over "model". A sublayer every rank
-    computes whole (``tp`` False) gathers its input and takes its own block
-    of the output, with no sum either way.
+    over "model". With it (``seq``: ``sp`` and a forward whose length "model"
+    divides, the reference's rule) the residual stream holds this rank's
+    L/tp tokens: the input is all-gathered over the sequence (its gradient
+    reduce-scattered), the output reduce-scattered, the norms run on local
+    tokens and their weights' gradients are summed over "model". A
+    sublayer every rank computes whole (``tp`` False) gathers its input and
+    takes its own block of the output, with no sum either way.
+
+    What splits: the train forward (``begin_seq``, which keeps the split for
+    the backward's recomputes) and a serving prefill (``sequence``: the
+    decoder's F + T positions, ended before the head, which reads each
+    row's last valid position through ``last_rows``); the encoder by its
+    own frame count (``encoder``), its output, the memory, staying split
+    (``mem_seq``) until each cross-attention gathers it. A decode or verify
+    step never splits: its (B, 1, D) token has nothing to split, as in the
+    reference, whose ``sub_decode`` constrains nothing.
 
     ``context_parallel``: decode attention over a cache whose length is
     split over "data" (``models.attention.decode_attention``).
@@ -781,22 +792,65 @@ class GridSharder:
         block over "model" when "model" divides it."""
         return n // self.tp if n % self.tp == 0 else n
 
-    def begin_seq(self, length: int):
-        """Sequence parallelism for a train forward of ``length`` tokens."""
-        self.seq = self.sp and self.tp > 1 and length % self.tp == 0
+    def splits(self, length: int) -> bool:
+        """Whether sequence parallelism splits a sequence of ``length``
+        positions: ``sp``, more than one "model" rank, and ``length`` a
+        multiple of them (the reference's ``x.shape[1] % tp == 0``)."""
+        return self.sp and self.tp > 1 and length % self.tp == 0
+
+    def begin_seq(self, length: int, memory_len: int = 0):
+        """Sequence parallelism for a train forward of ``length`` decoder
+        positions beside ``memory_len`` encoder frames (0: no encoder). It
+        stays set after the forward: a rematerialised layer's recompute in
+        the backward reads it."""
+        self.seq = self.splits(length)
+        self.mem_seq = bool(memory_len) and self.splits(memory_len)
+
+    @contextlib.contextmanager
+    def sequence(self, length: int, memory_len: int = 0):
+        """``begin_seq`` for one forward (a serving prefill): ``seq`` and
+        ``mem_seq`` are restored on exit, so the decode steps after it see
+        the state before it."""
+        saved = self.seq, self.mem_seq
+        self.begin_seq(length, memory_len)
+        try:
+            yield
+        finally:
+            self.seq, self.mem_seq = saved
 
     @contextlib.contextmanager
     def encoder(self, length: int):
         """The encoder's forward over ``length`` frames: sequence
         parallelism by its own length, which its output (the memory the
-        cross-attention reads, ``kind="memory"``) keeps."""
-        seq = self.seq
-        self.begin_seq(length)
-        self.mem_seq = self.seq
+        cross-attention reads, ``kind="memory"``) keeps: the enclosing
+        forward's ``mem_seq`` says so (``begin_seq``, ``sequence``).
+        ``seq`` and ``mem_seq`` are restored on exit."""
+        saved = self.seq, self.mem_seq
+        self.seq = self.mem_seq = self.splits(length)
         try:
             yield
         finally:
-            self.seq = seq
+            self.seq, self.mem_seq = saved
+
+    def whole_len(self, local: int, memory: bool = False) -> int:
+        """The length of the sequence (with ``memory``: the encoder's
+        memory) of which this rank holds ``local`` positions."""
+        return local * self.tp if (self.mem_seq if memory else self.seq) else local
+
+    def last_rows(self, x, pos):
+        """(B, 1, D): row b's position ``pos[b] − 1`` of the residual stream
+        ``x``. Split over the sequence, the rank whose block holds it gives
+        the row and the others zeros, summed over "model" (exact: one part
+        is nonzero; B·D a rank, not a gather of the whole (B, L, D))."""
+        rows = torch.arange(x.shape[0], device=x.device)
+        if not self.seq:
+            return x[rows, pos - 1][:, None]
+        k = x.shape[1]
+        local = pos - 1 - self.model.rank * k
+        hit = (local >= 0) & (local < k)
+        picked = x[rows, local.clamp(0, k - 1)]
+        picked = torch.where(hit[:, None], picked, torch.zeros((), dtype=x.dtype, device=x.device))
+        return coll.sum_disjoint(picked, self.model, role="sp_gather")[:, None]
 
     def __call__(self, x, kind="seq", tp: bool = False):
         m = self.model
@@ -893,9 +947,11 @@ class _VocabCE(torch.autograd.Function):
 def make_activation_sharder(grid, sp: bool = False, context_parallel: bool = False) -> GridSharder:
     """The object installed into ``models.transformer.activation_sharding``.
 
-    ``sp``: Korthikanti-style sequence parallelism in the train forward:
-    the residual stream between blocks split over "model" on the sequence
-    dim, so a TP boundary's sum becomes a reduce-scatter (and an all-gather
-    before the next product): half the bytes, and the norms run on 1/tp of
-    the tokens."""
+    ``sp``: Korthikanti-style sequence parallelism: the residual stream
+    between blocks split over "model" on the sequence dim, so a TP
+    boundary's sum becomes a reduce-scatter (and an all-gather before the
+    next product): half the bytes, and the norms run on 1/tp of the tokens.
+    It splits the train forward and a serving prefill (the encoder's frames
+    by their own length), each when "model" divides its length; a decode
+    step never splits, as in the reference (``GridSharder``)."""
     return GridSharder(grid, sp, context_parallel)

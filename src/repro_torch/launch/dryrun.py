@@ -44,7 +44,11 @@ launches (``analysis.trace``, lean). What the reference's ideas become:
 * Serving: prefill and decode cells read ``sharding.materialize_serving``
   under every ``tpmode``, as a real rank does (the sublayers whose cache
   is split over "model" on the rank's blocks); a cache write of the wrong
-  shape raises on the meta device as on the CPU.
+  shape raises on the meta device as on the CPU. Under ``sp=1`` a prefill
+  cell splits its positions over "model" through ``Model.prefill``, as the
+  reference's activation constraint does; a decode cell's token has
+  nothing to split, so there ``sp=1`` changes nothing (its report equals
+  ``sp=0``'s), as in the reference, whose decode constrains nothing.
 * Refusals: a cell that the grid refuses (a head split by
   ``train.grid.check_grid``, a ROADMAP item 7b part still to port) is
   written as ``{"refused": <the message>}`` beside the reference's

@@ -346,6 +346,16 @@ class Model:
         in the decoder cache; enc-dec frontends go through the encoder."""
         return self.cfg.frontend_len if self.cfg.family == "vlm" else 0
 
+    def seq_lengths(self, batch) -> tuple:
+        """(decoder positions, encoder frames) of a forward over ``batch``:
+        the lengths sequence parallelism splits (``GridSharder.begin_seq``).
+        A VLM's patch prefix heads the decoder sequence; an enc-dec's frames
+        split by their own count (0 without an encoder)."""
+        T = batch["tokens"].shape[1]
+        if self.cfg.is_encdec:
+            return T, batch["frontend"].shape[1]
+        return T + (batch["frontend"].shape[1] if self.cfg.family == "vlm" else 0), 0
+
     def _encode(self, params, frontend):
         """The encoder stack over the frontend embeddings (in the model
         dtype): the memory (B, F, D) the cross-attention reads, or None for
@@ -438,7 +448,15 @@ class Model:
         ``prompt_lens (B,)``: valid prompt length per row for ragged batches
         (tokens right-padded to the common length). A VLM's patch prefix
         takes the first F positions of the cache, so ``pos`` is F + the
-        prompt length."""
+        prompt length.
+
+        On a grid with sequence parallelism the decoder's F + T positions
+        (and the encoder's frames) split over "model" when it divides them,
+        as the reference's prefill constrains them: each rank's caches
+        still hold the whole prompt and memory (``transformer.group_prefill``),
+        each row's last valid position comes from the rank that holds it
+        (``GridSharder.last_rows``), and the split ends before the head,
+        which reads that (B, 1, D) row as without it."""
         cfg = self.cfg
         B, T = batch["tokens"].shape
         F = self._prefix_len
@@ -448,18 +466,21 @@ class Model:
         if prompt_lens is not None and self._has_recurrent_state():
             raise ValueError("ragged prefill (prompt_lens) unsupported for recurrent-state archs")
         params = as_view(params)
-        memory = self._encode(params, batch.get("frontend"))
-        x = self._decoder_input(params, batch)
-        layers = []
-        for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
-            x, c = tf.group_prefill(gp, x, g, cfg, cache_len, memory=memory)
-            layers.append(c)
-        if prompt_lens is None:
-            pos = torch.full((B,), F + T, dtype=torch.int64, device=x.device)
-        else:
-            pos = F + prompt_lens.to(device=x.device, dtype=torch.int64)
-        # last valid position per row, in decoder-sequence coordinates
-        x_last = x[torch.arange(B, device=x.device), pos - 1][:, None]
+        sh = sharder()
+        with contextlib.nullcontext() if sh is None else sh.sequence(*self.seq_lengths(batch)):
+            memory = self._encode(params, batch.get("frontend"))
+            x = tf.shard_act(self._decoder_input(params, batch), "seq")
+            layers = []
+            for g, gp in zip(cfg.decoder_program(), params.decoder.groups):
+                x, c = tf.group_prefill(gp, x, g, cfg, cache_len, memory=memory)
+                layers.append(c)
+            if prompt_lens is None:
+                pos = torch.full((B,), F + T, dtype=torch.int64, device=x.device)
+            else:
+                pos = F + prompt_lens.to(device=x.device, dtype=torch.int64)
+            # last valid position per row, in decoder-sequence coordinates
+            x_last = x[torch.arange(B, device=x.device), pos - 1][:, None] if sh is None \
+                else sh.last_rows(x, pos)
         return self._head(params, x_last), DecodeState(tuple(layers), pos)
 
     def decode_step(self, params, state: DecodeState, token, active=None):

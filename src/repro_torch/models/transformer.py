@@ -32,7 +32,10 @@ of its heads, hidden units, experts (MoE) or channels (Mamba, RWKV:
 ``_split_over_model``); its caches then hold this rank's heads or channels
 (``cache_shardings``), prefill included. A serving rank holds such a block
 under every tp_mode (``sharding.materialize_serving`` cuts it where the
-tp_mode stores the sublayer whole).
+tp_mode stores the sublayer whole). Under sequence parallelism x holds a
+rank's block of the positions (the train forward and a serving prefill);
+each sublayer reads its input gathered over them, so the prefill's caches
+and recurrent states are taken from the whole sequence.
 """
 
 from __future__ import annotations
@@ -93,6 +96,16 @@ def _normed(p, x, sub: Sub, cfg: ModelConfig):
     return shard_act(h, "block_in", tp=tp), tp
 
 
+def _inputs(p, x, sub: Sub, cfg: ModelConfig, memory=None):
+    """(the sublayer's input, whether it is split over "model", the memory
+    at its boundary for a cross-attention sublayer, else None): what
+    ``sub_apply`` reads; on a grid the input and the memory are whole over
+    the sequence (gathered under sequence parallelism)."""
+    h, tp = _normed(p, x, sub, cfg)
+    mem = shard_act(memory, "memory", tp=tp) if sub.kind == "cross_attn" else None
+    return h, tp, mem
+
+
 # ------------------------------------------------------------------- init --
 def sub_init(gen, sub: Sub, cfg: ModelConfig, dtype, repeats: int):
     """Parameters of ``repeats`` stacked copies of one sublayer."""
@@ -133,21 +146,24 @@ def layer_params(group_params, layer: int) -> dict:
 
 
 # ---------------------------------------------------------------- forward --
-def sub_apply(p, x, sub: Sub, cfg: ModelConfig, memory=None, positions=None):
+def sub_apply(p, x, sub: Sub, cfg: ModelConfig, memory=None, positions=None, inputs=None):
     """Pre-norm residual sublayer: (x + f(rms_norm(x)), aux) where aux is
     the MoE aux loss (f32 scalar), None for the other kinds.
     Causal self-attention takes the flash kernels above
-    ``cfg.flash_min_len``, else the config's ``attention_impl``: "banded"
-    for windowed layers, "flash" (the blocked online softmax in torch) for
-    causal ones, "masked" otherwise; non-causal self-attention (the
-    encoder's) takes the masked path, as in the JAX package. Cross-attention
-    attends to ``memory`` (B, F, D) on the masked path, without a mask or
-    rotary embedding."""
+    ``cfg.flash_min_len`` (of the whole sequence: under sequence
+    parallelism x holds a rank's block of it), else the config's
+    ``attention_impl``: "banded" for windowed layers, "flash" (the blocked
+    online softmax in torch) for causal ones, "masked" otherwise;
+    non-causal self-attention (the encoder's) takes the masked path, as in
+    the JAX package. Cross-attention attends to ``memory`` (B, F, D) on the
+    masked path, without a mask or rotary embedding. ``inputs``: ``_inputs``
+    of this sublayer when the caller took them (the prefill reads them for
+    its caches)."""
     aux = None
-    h, tp = _normed(p, x, sub, cfg)
+    h, tp, mem = _inputs(p, x, sub, cfg, memory) if inputs is None else inputs
     impl = cfg.attention_impl
     if sub.kind == "attn":
-        if sub.causal and attn.use_flash(cfg, x.shape[1]):
+        if sub.causal and attn.use_flash(cfg, h.shape[1]):
             out = attn.kernel_flash_attention(p, h, cfg, causal=True, window=sub.window,
                                               positions=positions)
         elif sub.window and impl in ("banded", "flash") and sub.causal:
@@ -159,8 +175,7 @@ def sub_apply(p, x, sub: Sub, cfg: ModelConfig, memory=None, positions=None):
             out = attn.full_attention(p, h, cfg, causal=sub.causal, window=sub.window,
                                       positions=positions)
     elif sub.kind == "cross_attn":
-        out = attn.full_attention(p, h, cfg, causal=False, rope=False,
-                                  x_kv=shard_act(memory, "memory", tp=tp))
+        out = attn.full_attention(p, h, cfg, causal=False, rope=False, x_kv=mem)
     elif sub.kind == "mlp":
         out = mlp_apply(p, h, cfg.act, cfg.d_ff)
     elif sub.kind == "moe":
@@ -358,41 +373,49 @@ def group_init_cache(group: Group, cfg: ModelConfig, batch, cache_len, dtype, de
 
 # ---------------------------------------------------------------- prefill --
 def group_prefill(params, x, group: Group, cfg: ModelConfig, cache_len, memory=None):
-    """Forward + cache construction: each attention layer's K/V are written
-    into a zeroed cache, then the sublayer runs through ``sub_apply``; each
-    cross-attention layer's cache holds the K/V of ``memory``
-    (``attention.cross_kv``); each recurrent sublayer runs its parallel
-    path and writes its decode state after the last token
-    (``_mixer_prefill``)."""
-    B, L, _ = x.shape
-    caches = group_init_cache(group, cfg, B, cache_len, x.dtype, x.device,
-                              memory_len=0 if memory is None else memory.shape[1])
+    """Forward + cache construction: each attention layer's K/V, from the
+    sublayer's input, are written into a zeroed cache, then the sublayer
+    runs through ``sub_apply`` on the same input; each cross-attention
+    layer's cache holds the K/V of ``memory`` (``attention.cross_kv``);
+    each recurrent sublayer runs its parallel path and writes its decode
+    state after the last token (``_mixer_prefill``).
+
+    On a grid the sublayer's input and the memory are whole over the
+    sequence (gathered under sequence parallelism, where x and ``memory``
+    hold a rank's block): every cache holds the whole prompt and the whole
+    memory (this rank's span of the prompt under context parallelism)."""
+    sh = sharder()
+    B, L = x.shape[0], x.shape[1] if sh is None else sh.whole_len(x.shape[1])
+    F = 0 if memory is None else memory.shape[1] if sh is None \
+        else sh.whole_len(memory.shape[1], memory=True)
+    caches = group_init_cache(group, cfg, B, cache_len, x.dtype, x.device, memory_len=F)
     positions = attn._positions(B, L, x.device)
+    lo = 0 if sh is None else sh.cache_span(cache_len)[0]
     for layer in range(group.repeats):
         lp = layer_params(params, layer)
         for i, s in enumerate(group.period):
             key = f"sub{i}"
             p = lp[key]
+            if s.kind in RECURRENT:
+                x, state = _mixer_prefill(p, x, s, cfg)
+                for name, t in state.items():
+                    check_write(f"{s.kind} state {name}", t, caches[key][name].shape[1:])
+                    caches[key][name][layer] = t
+                continue
+            inputs = _inputs(p, x, s, cfg, memory)
             if s.kind == "attn":
-                hn = rms_norm(x, p["norm"], cfg.norm_eps)
-                _, k, v = attn._qkv(p, hn, hn, cfg, positions, positions)
-                lo = 0 if sharder() is None else sharder().cache_span(cache_len)[0]
+                h = inputs[0]
+                _, k, v = attn._qkv(p, h, h, cfg, positions, positions)
                 n = max(0, min(caches[key]["k"].shape[2], L - lo))   # this rank's span
                 for name, t in (("k", k), ("v", v)):
                     c = caches[key][name][layer, :, :n]
                     check_write(f"prefill {name}", t[:, lo:lo + n], c.shape)
                     c.copy_(t[:, lo:lo + n])
             elif s.kind == "cross_attn":
-                for name, t in attn.cross_kv(p, memory, cfg).items():
+                for name, t in attn.cross_kv(p, inputs[2], cfg).items():
                     check_write(f"cross-attention {name}", t, caches[key][name].shape[1:])
                     caches[key][name][layer] = t
-            if s.kind in RECURRENT:
-                x, state = _mixer_prefill(p, x, s, cfg)
-                for name, t in state.items():
-                    check_write(f"{s.kind} state {name}", t, caches[key][name].shape[1:])
-                    caches[key][name][layer] = t
-            else:
-                x, _ = sub_apply(p, x, s, cfg, memory=memory)
+            x, _ = sub_apply(p, x, s, cfg, memory=memory, inputs=inputs)
     return x, caches
 
 

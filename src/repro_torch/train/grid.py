@@ -228,11 +228,8 @@ def make_grid_train_step(model: Model, opt: CollageAdamW, grid, *, fsdp: bool = 
         rows_split = bool(sharder.rows_split)
         if has_moe:
             moe_lib.check_groups(cfg, local["tokens"].numel(), grid.n_dp if rows_split else 1)
-        length = local["tokens"].shape[1]
-        if cfg.family == "vlm":                  # the patch prefix heads the decoder sequence
-            length += local["frontend"].shape[1]
         with torch.enable_grad(), tf.activation_sharding(sharder):
-            sharder.begin_seq(length)
+            sharder.begin_seq(*model.seq_lengths(local))
             compute = sh.materialize(params, pspecs if over_dp else tspecs, grid, cfg.head_dim_,
                                      over_dp=over_dp, per_layer=True)
             loss, lm = model.loss(compute, local, remat=remat)

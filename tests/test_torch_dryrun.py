@@ -17,8 +17,14 @@ state's residual rows across bucket layouts.
   census, entry by entry (op, role, dtype, bytes), equals that of each
   rank of a real (2, 2) gloo grid (four processes) for the tree C train
   step, the bucketed step, prefill and decode (under tp_mode mlponly and
-  none too, rwkv6's decode among them), and its state blocks are
+  none too, rwkv6's decode among them; with sequence parallelism too,
+  seamless's prefill among them), and its state blocks are
   ``shard_state``'s.
+* Sequence parallelism in the serving cells: seamless's cross-attention
+  caches hold all the memory's frames under ``sp=1`` (F8); a prefill
+  cell's boundary sums move from ``tp_reduce`` to ``sp_scatter`` (F9),
+  for granite, seamless, qwen3-moe and internvl2 under ``tpmode=none``;
+  a decode cell's census under ``sp=1`` equals ``sp=0``'s.
 * On a one-rank grid the meta trace of a step equals the CPU trace of the
   same step: FLOPs, modelled peak and the kernel calls (the CPU's plain
   versions' own ops set apart); each kernel wrapper's meta outputs have
@@ -232,6 +238,11 @@ CENSUS_CASES = {
     "decode_mlponly": ("granite-3-2b", (32, 4, "decode"), {"tpmode": "mlponly"}, 1),
     "decode_none": ("granite-3-2b", (32, 4, "decode"), {"tpmode": "none"}, 1),
     "decode_none_rwkv6": ("rwkv6-1.6b", (32, 4, "decode"), {"tpmode": "none"}, 1),
+    # sequence parallelism in serving: the prefill's positions over "model"
+    # (seamless's frames by their own count), the decode step unsplit
+    "prefill_sp": ("granite-3-2b", (16, 4, "prefill"), {"sp": "1"}, 1),
+    "prefill_sp_seamless": ("seamless-m4t-medium", (16, 4, "prefill"), {"sp": "1"}, 1),
+    "decode_sp": ("granite-3-2b", (32, 4, "decode"), {"sp": "1"}, 1),
 }
 
 
@@ -339,6 +350,58 @@ def test_virtual_axis_collectives_move_nothing_and_keep_shapes():
     assert [(c["op"], c["bytes"]) for c in coll.CENSUS] == [
         ("all_gather", 96), ("all_to_all", 96), ("all_gather", 96), ("all_to_all", 96),
         ("all_reduce_max", 192)]
+
+
+# ------------------------------------------- sequence parallelism in serving --
+def _virtual_cell(arch, L, B, mode, overrides):
+    """One rank's serving cell on the virtual (2, 2) grid, at smoke size →
+    (what it returns, its census by role)."""
+    from repro_torch.configs.base import ShapeConfig
+    cell = dryrun.cell_step(get_config(arch, smoke=True), ShapeConfig("t", L, B, mode),
+                            mesh_lib.virtual_grid(2, 2, coords=(0, 1)), "C", True, overrides,
+                            device="meta")
+    coll.reset_census()
+    out = cell["fn"](*cell["inputs"])
+    return out, dryrun.census_by(coll.CENSUS)
+
+
+def test_sequence_parallel_prefill_keeps_the_whole_memory_in_the_cross_caches():
+    """F8's gate: seamless's prefill cell under ``sp=1`` splits its 8 frames
+    over "model" for the encoder, yet every cross-attention cache holds all
+    8 (a rank's block of the memory, 4, before the repair), as under
+    ``sp=0``."""
+    cfg = get_config("seamless-m4t-medium", smoke=True)
+    for sp in ("0", "1"):
+        (_, state), census = _virtual_cell("seamless-m4t-medium", 16, 4, "prefill", {"sp": sp})
+        cross = [c for layers in state.layers for key, c in layers.items()
+                 if tuple(c["k"].shape[2:3]) == (cfg.frontend_len,)]
+        n_cross = sum(s.kind == "cross_attn" for g in cfg.decoder_program() for s in g.period)
+        assert len(cross) == n_cross > 0, (sp, [tuple(c["k"].shape) for layers in state.layers
+                                                for c in layers.values()])
+        assert ("sp_scatter" in census) == (sp == "1")
+
+
+@pytest.mark.parametrize("arch,tpmode", [("granite-3-2b", "full"), ("seamless-m4t-medium", "full"),
+                                         ("qwen3-moe-30b-a3b", "full"),
+                                         ("internvl2-1b", "none")])
+def test_sequence_parallel_prefill_cell_reduce_scatters_its_boundaries(arch, tpmode):
+    """F9's gate: a prefill cell under ``sp=1`` reduce-scatters the
+    decoder's boundary sums over the sequence (``sp_scatter``) and gathers
+    its inputs (``sp_gather``) where ``sp=0`` sums them (``tp_reduce``); the
+    parent planned both alike."""
+    _, plain = _virtual_cell(arch, 16, 4, "prefill", {"tpmode": tpmode})
+    _, sp = _virtual_cell(arch, 16, 4, "prefill", {"tpmode": tpmode, "sp": "1"})
+    assert plain.get("tp_reduce", 0) > 0 and not {"sp_scatter", "sp_gather"} & set(plain)
+    assert sp.get("sp_scatter", 0) > 0 and sp.get("sp_gather", 0) > 0
+    assert sp.get("tp_reduce", 0) == 0, sp
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "rwkv6-1.6b", "seamless-m4t-medium"])
+def test_sequence_parallel_decode_cell_equals_tensor_parallel(arch):
+    """A decode cell's (B, 1, D) token has nothing to split: under ``sp=1``
+    its census equals ``sp=0``'s byte for byte, as in the reference."""
+    assert _virtual_cell(arch, 32, 4, "decode", {"sp": "1"})[1] == \
+        _virtual_cell(arch, 32, 4, "decode", {})[1]
 
 
 # -------------------------------------------------- meta trace, CPU trace --

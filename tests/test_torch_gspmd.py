@@ -25,12 +25,17 @@ steps, the serving):
 * SR on the grid bit-identical to the port's one-rank update given the
   same gradient, and the fused update (its plain version here) too;
 * serving, granite on (2,2) under tp_mode full, mlponly and none
-  (``sharding.materialize_serving``): prefill and ``decode_step`` logits
-  against the JAX functions (3e-2 in bf16, 1e-5 in f32), the
-  context-parallel decode (a batch of one, the cache length over "data"),
-  greedy ``generate`` tokens equal to the JAX ones in f32, mlponly's
-  logits and tokens equal to full's bit for bit, the prefill's caches
-  within 1e-6 of the one-rank port's in f32;
+  (``sharding.materialize_serving``), each without and with sequence
+  parallelism (``sp=True``: the prefill's positions over "model"):
+  prefill and ``decode_step`` logits against the JAX functions (3e-2 in
+  bf16, 1e-5 in f32), the context-parallel decode (a batch of one, the
+  cache length over "data"), greedy ``generate`` tokens equal to the JAX
+  ones in f32, mlponly's logits and tokens equal to full's bit for bit,
+  the prefill's caches within 1e-6 of the one-rank port's in f32; under
+  sp the f32 logits within 1e-5 of sp=False's, the prefill's census with
+  ``sp_scatter``/``sp_gather`` in place of ``tp_reduce``, no split left
+  after it, ragged prompts against the JAX prefill, and a prompt "model"
+  does not divide served as without sp, bit for bit;
 * a cache write of the wrong shape raises on the CPU and on the meta
   device alike;
 * the one build refusal left: ``psum_axis`` (the shard_map engine's).
@@ -61,6 +66,7 @@ from repro_torch.train import train_loop
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, L = 8, 32                  # train batch
 SB, PROMPT, CACHE, GEN = 4, 16, 32, 8   # serving
+ODD_PROMPT = 15               # a prompt length "model" (2) does not divide
 
 # (name, arch, dtype, fsdp, tp_mode, sp) trained on every grid in GRIDS[name]
 TRAIN = {
@@ -168,8 +174,9 @@ def grid_22_cases(g, out):
                    zip(sh.named_leaves(train_loop.TrainState(want_p, want_o)),
                        sh.named_leaves(got)))
         out[name] = {"bit_identical": same, "n": len(sh.named_leaves(got))}
-    # serving under every tp_mode (keys of "full" without a prefix), and the
-    # one-rank port's prefill caches
+    # serving under every tp_mode, without and with sequence parallelism
+    # (keys of "full" without sp without a prefix), and the one-rank port's
+    # prefill caches
     for dtype in ("bfloat16", "float32"):
         model = build_model(T._cfg(arch, dtype))
         params = inp["params"][arch + dtype]
@@ -177,32 +184,52 @@ def grid_22_cases(g, out):
         res = {}
         for mode in sh.TP_MODES:
             pspecs = sh.state_shardings(params, g, tp_mode=mode)
-            key = "" if mode == "full" else mode + "_"
-            for cp in (False, True):
-                whole = model.init_decode_state(1 if cp else len(toks), T.CACHE, device="meta")
-                cspecs = sh.cache_shardings(whole.layers, g, cp)
-                shd = sh.make_activation_sharder(g, context_parallel=cp)
-                with torch.no_grad(), tf.activation_sharding(shd):
-                    mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g,
-                                                model.cfg)
-                    batch = {"tokens": toks[:1] if cp else toks}
-                    bspec = sh.batch_shardings(batch, g)
-                    rows = bspec["tokens"][0] if bspec["tokens"] else None
-                    lb = sh.local_tree(batch, bspec, g)
-                    logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
-                    vocab = "model" if logits.shape[-1] < model.cfg.vocab_size else None
-                    res[f"{key}prefill{int(cp)}"] = np_(sh.gather_block(
-                        logits, sh.P(rows, None, vocab), g))
-                    if dtype == "float32":
-                        res[f"{key}cache{int(cp)}"] = leaves(sh.gather_tree(st.layers, cspecs, g))
-                    tok = sh.local_block(inp["next_tok"][:1] if cp else inp["next_tok"],
-                                         sh.P(rows, None), g)
-                    logits, st = model.decode_step(mp, st, tok)
-                    res[f"{key}decode{int(cp)}"] = np_(sh.gather_block(
-                        logits, sh.P(rows, None, vocab), g))
-                    if not cp:
-                        gen, _ = model.generate(mp, lb, T.GEN)
-                        res[f"{key}generate"] = sh.gather_block(gen, sh.P(rows, None), g).tolist()
+            for sp in (False, True):
+                key = ("" if mode == "full" else mode + "_") + ("sp_" if sp else "")
+                for cp in (False, True):
+                    whole = model.init_decode_state(1 if cp else len(toks), T.CACHE, device="meta")
+                    cspecs = sh.cache_shardings(whole.layers, g, cp)
+                    shd = sh.make_activation_sharder(g, sp=sp, context_parallel=cp)
+                    with torch.no_grad(), tf.activation_sharding(shd):
+                        mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g,
+                                                    model.cfg)
+                        batch = {"tokens": toks[:1] if cp else toks}
+                        bspec = sh.batch_shardings(batch, g)
+                        rows = bspec["tokens"][0] if bspec["tokens"] else None
+                        lb = sh.local_tree(batch, bspec, g)
+                        coll.reset_census()
+                        logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
+                        res[f"{key}roles{int(cp)}"] = sorted({c["role"] for c in coll.CENSUS})
+                        res[f"{key}split_after{int(cp)}"] = [shd.seq, shd.mem_seq]
+                        vocab = "model" if logits.shape[-1] < model.cfg.vocab_size else None
+                        res[f"{key}prefill{int(cp)}"] = np_(sh.gather_block(
+                            logits, sh.P(rows, None, vocab), g))
+                        if dtype == "float32":
+                            res[f"{key}cache{int(cp)}"] = leaves(sh.gather_tree(st.layers, cspecs,
+                                                                                g))
+                        tok = sh.local_block(inp["next_tok"][:1] if cp else inp["next_tok"],
+                                             sh.P(rows, None), g)
+                        logits, st = model.decode_step(mp, st, tok)
+                        res[f"{key}decode{int(cp)}"] = np_(sh.gather_block(
+                            logits, sh.P(rows, None, vocab), g))
+                        if not cp:
+                            gen, _ = model.generate(mp, lb, T.GEN)
+                            res[f"{key}generate"] = sh.gather_block(gen, sh.P(rows, None),
+                                                                    g).tolist()
+                        if cp or mode != "full" or dtype != "float32":
+                            continue
+                        # ragged prompts, and a prompt "model" does not divide (TP's path)
+                        lens = sh.local_block(inp["prompt_lens"], sh.P(rows), g)
+                        logits, st = model.prefill(mp, lb, cache_len=T.CACHE, prompt_lens=lens)
+                        res[f"{key}ragged"] = np_(sh.gather_block(logits, sh.P(rows, None, vocab),
+                                                                  g))
+                        coll.reset_census()
+                        odd = {"tokens": lb["tokens"][:, :T.ODD_PROMPT]}
+                        logits, st = model.prefill(mp, odd, cache_len=T.CACHE)
+                        res[f"{key}odd_roles"] = sorted({c["role"] for c in coll.CENSUS})
+                        res[f"{key}odd"] = [np_(sh.gather_block(logits, sh.P(rows, None, vocab),
+                                                                g))]
+                        res[f"{key}odd"] += leaves(sh.gather_tree(st.layers, cspecs, g))
         if RANK == 0 and dtype == "float32":
             with torch.no_grad():
                 for cp in (False, True):
@@ -272,11 +299,15 @@ def _inputs():
                 "serve_tokens": rng.integers(0, 256, (SB, PROMPT)),
                 "next_tok": rng.integers(0, 256, (SB, 1)),
                 "layers": {a: _cfg(a, d).n_layers for a, d in pairs}, "cache": CACHE, "gen": GEN}
+    # ragged prompts: each row's valid length, one of them on each model
+    # rank's half of the sequence and one at the end
+    numpy_in["prompt_lens"] = np.array([PROMPT, 3, PROMPT // 2 + 1, PROMPT // 2])
     toks = torch.tensor(numpy_in["tokens"])
     params = {a + d: map_leaves(lambda path, x: x.detach().clone(), param_dict(
         params_from_numpy(np_params[a + d], _cfg(a, d), device="cpu"))) for a, d in pairs}
     return numpy_in, {"params": params, "batch": {"tokens": toks, "labels": toks},
-                      **{k: torch.tensor(numpy_in[k]) for k in ("serve_tokens", "next_tok")}}
+                      **{k: torch.tensor(numpy_in[k])
+                         for k in ("serve_tokens", "next_tok", "prompt_lens")}}
 
 
 # The JAX references, each in a process of its own that imports JAX and the
@@ -328,6 +359,9 @@ else:                               # granite's prefill, decode_step, greedy gen
         if dtype == "float32":
             gen, _ = model.generate(params, {"tokens": serve}, max_new_tokens=int(inp["gen"]))
             res["generate"] = np.asarray(gen).tolist()
+            logits, _ = model.prefill(params, {"tokens": serve}, cache_len=int(inp["cache"]),
+                                      prompt_lens=inp["prompt_lens"].astype(np.int32))
+            res["ragged"] = np.asarray(logits, np.float32)
         out["serve_" + dtype] = res
 pickle.dump(out, open(f"jax_{what}.pkl", "wb"))
 """
@@ -494,6 +528,93 @@ def test_prefill_cache_blocks_match_one_rank(runs, mode, cp):
     assert len(got) == len(want) > 0
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["prefill0", "decode0", "prefill1", "decode1"])
+@pytest.mark.parametrize("mode", ("full",) + SERVE_MODES)
+def test_sequence_parallel_serving_matches(runs, mode, kind, dtype):
+    """Serving with ``sp=True`` (the prefill's 16 positions split over
+    "model", the decode step not) under each tp_mode, TP (cp 0) and
+    context-parallel (cp 1), against the same JAX functions as without it."""
+    grids, refs = runs
+    key = ("" if mode == "full" else mode + "_") + "sp_"
+    got, want = grids[(2, 2)]["serve_" + dtype][key + kind], refs["serve_" + dtype][kind]
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mode", ("full",) + SERVE_MODES)
+def test_sequence_parallel_serving_equals_tensor_parallel(runs, mode):
+    """f32 serving with sp=True within 1e-5 of sp=False under the same
+    tp_mode (the same products; the boundary sums reduce-scattered), the
+    greedy tokens equal to the JAX ones and to sp=False's; mlponly's
+    logits with sp equal to full's with sp bit for bit."""
+    res = runs[0][(2, 2)]["serve_float32"]
+    tp = "" if mode == "full" else mode + "_"
+    for kind in ("prefill0", "decode0", "prefill1", "decode1"):
+        np.testing.assert_allclose(res[tp + "sp_" + kind], res[tp + kind], rtol=1e-5, atol=1e-5,
+                                   err_msg=kind)
+    assert res[tp + "sp_generate"] == res[tp + "generate"] == runs[1]["serve_float32"]["generate"]
+    if mode == "mlponly":        # the same products on the same blocks as full's, with sp too
+        for kind in ("prefill0", "decode0", "prefill1", "decode1"):
+            np.testing.assert_array_equal(res["mlponly_sp_" + kind], res["sp_" + kind])
+
+
+@pytest.mark.parametrize("cp", [0, 1])
+@pytest.mark.parametrize("mode", ("full",) + SERVE_MODES)
+def test_sequence_parallel_prefill_caches_match_one_rank(runs, mode, cp):
+    """Under sp=True each rank's caches still hold the whole prompt (its
+    span of it with cp 1) on its heads: gathered, within 1e-6 of the
+    one-rank port's in f32."""
+    res = runs[0][(2, 2)]["serve_float32"]
+    got = res[("" if mode == "full" else mode + "_") + f"sp_cache{cp}"]
+    want = res[f"one_rank_cache{cp}"]
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ("full",) + SERVE_MODES)
+@pytest.mark.parametrize("sp", [False, True])
+def test_sequence_parallel_prefill_census_and_split_state(runs, sp, mode):
+    """The prefill's boundary sums: ``tp_reduce`` without sp, the
+    reduce-scatter and all-gather over the sequence (``sp_scatter``,
+    ``sp_gather``) in its place with it; after the prefill the sharder holds
+    no split (the decode step after it reads the whole token)."""
+    res = runs[0][(2, 2)]["serve_float32"]
+    key = ("" if mode == "full" else mode + "_") + ("sp_" if sp else "")
+    for cp in (0, 1):
+        roles = set(res[f"{key}roles{cp}"])
+        if sp:
+            assert {"sp_gather", "sp_scatter"} <= roles and "tp_reduce" not in roles, roles
+        else:
+            assert "tp_reduce" in roles and not {"sp_gather", "sp_scatter"} & roles, roles
+        assert res[f"{key}split_after{cp}"] == [False, False]
+
+
+def test_sequence_parallel_ragged_prefill_matches(runs):
+    """Ragged ``prompt_lens`` (a row's last valid position on either model
+    rank's half of the sequence) under sp=True: each row's logits from the
+    rank that holds its position, within 1e-5 of the JAX function's and of
+    sp=False's in f32."""
+    grids, refs = runs
+    res = grids[(2, 2)]["serve_float32"]
+    np.testing.assert_allclose(res["sp_ragged"], refs["serve_float32"]["ragged"], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(res["sp_ragged"], res["ragged"], rtol=1e-5, atol=1e-5)
+
+
+def test_sequence_parallel_indivisible_prompt_runs_as_tensor_parallel(runs):
+    """A prompt of 15 positions, which "model" (2) does not divide, runs
+    with sp=True as without it (the reference's rule): logits and caches
+    equal bit for bit, and no collective over the sequence."""
+    res = runs[0][(2, 2)]["serve_float32"]
+    assert len(res["sp_odd"]) == len(res["odd"]) > 1
+    for a, b in zip(res["sp_odd"], res["odd"]):
+        np.testing.assert_array_equal(a, b)
+    assert res["sp_odd_roles"] == res["odd_roles"]
+    assert not {"sp_gather", "sp_scatter"} & set(res["sp_odd_roles"])
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])

@@ -19,8 +19,11 @@ on a (2, 2) grid of gloo ranks:
   (every leaf gathered at the step's start, as before this slice);
 * serving the frontends on the grid (``tp_mode`` "full", and seamless
   under "mlponly": its self- and cross-attention caches on the rank's
-  heads): prefill and decode logits against the port's one-rank model
-  (1e-5 in f32, 3e-2 in bf16) and f32 greedy tokens equal;
+  heads), without and with sequence parallelism (``sp=True``): prefill
+  and decode logits against the port's one-rank model (1e-5 in f32, 3e-2
+  in bf16) and f32 greedy tokens equal; under sp the caches (seamless's
+  cross-attention ones over all the memory's frames) within 1e-6 of
+  sp=False's and 1e-5 of the one-rank port's;
 * F6 (a divergence by design): the port's tree update fed the JAX step's
   f32 gradient of rwkv6 and jamba is bit-identical to the JAX update run
   op by op; the port's own gradient is within 1e-4 of each leaf's largest,
@@ -127,7 +130,9 @@ for name, (arch, over) in T.LIVE.items():
     out["live_" + name] = r
 coll.all_gather_dim = _gather
 
-# serving the frontends (seamless also under mlponly: SERVE_MODES)
+# serving the frontends (seamless also under mlponly: SERVE_MODES), without
+# and with sequence parallelism (the prefill's positions over "model", the
+# encoder's frames by their own count); in f32 the prefill's caches
 for sname, mode in [(n, "full") for n in T.SERVE] + list(SERVE_MODES):
     arch, over = T.SERVE[sname]
     for dtype in ("bfloat16", "float32"):
@@ -135,31 +140,49 @@ for sname, mode in [(n, "full") for n in T.SERVE] + list(SERVE_MODES):
         params = inp["params"][f"serve_{sname}_{dtype}"]
         batch = inp["serve"][f"serve_{sname}_{dtype}"]
         pspecs = sh.state_shardings(params, g, tp_mode=mode)
-        shd = sh.make_activation_sharder(g)
-        with torch.no_grad(), tf.activation_sharding(shd):
-            mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g, model.cfg)
-            lb = shd.local_batch(batch)
-            logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
-            vocab = sh.P("data", None, "model") if logits.shape[-1] < model.cfg.vocab_size \\
-                else sh.P("data", None, None)
-            r = {"prefill": np_(sh.gather_block(logits, vocab, g))}
-            tok = sh.local_block(inp["next_tok"], sh.P("data", None), g)
-            logits, st = model.decode_step(mp, st, tok)
-            r["decode"] = np_(sh.gather_block(logits, vocab, g))
-            if dtype == "float32":
-                gen, _ = model.generate(mp, lb, T.GEN)
-                r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
+        cspecs = sh.cache_shardings(model.init_decode_state(len(batch["tokens"]), T.CACHE,
+                                                            device="meta").layers, g)
+        for sp in (False, True):
+            shd = sh.make_activation_sharder(g, sp=sp)
+            with torch.no_grad(), tf.activation_sharding(shd):
+                mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g,
+                                            model.cfg)
+                lb = shd.local_batch(batch)
+                coll.reset_census()
+                logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
+                roles = sorted({c["role"] for c in coll.CENSUS})
+                vocab = sh.P("data", None, "model") if logits.shape[-1] < model.cfg.vocab_size \\
+                    else sh.P("data", None, None)
+                r = {"prefill": np_(sh.gather_block(logits, vocab, g)), "roles": roles,
+                     "split_after": [shd.seq, shd.mem_seq]}
+                if dtype == "float32":
+                    r["cache"] = leaves(sh.gather_tree(st.layers, cspecs, g))
+                tok = sh.local_block(inp["next_tok"], sh.P("data", None), g)
+                logits, st = model.decode_step(mp, st, tok)
+                r["decode"] = np_(sh.gather_block(logits, vocab, g))
+                if dtype == "float32":
+                    gen, _ = model.generate(mp, lb, T.GEN)
+                    r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
+            sfx = "_sp" if sp else ""
+            if mode != "full":
+                out[f"serve_{sname}_{mode}_{dtype}{sfx}"] = r
+            elif sp:
+                out[f"serve_{sname}_{dtype}{sfx}"] = r
+            else:
+                plain = r
         if mode != "full":
-            out[f"serve_{sname}_{mode}_{dtype}"] = r
             continue
         if RANK == 0:
             with torch.no_grad():
                 logits, st = model.prefill(params, batch, cache_len=T.CACHE)
-                r["one_rank"] = {"prefill": np_(logits),
-                                 "decode": np_(model.decode_step(params, st, inp["next_tok"])[0])}
+                cache = [x.copy() for x in leaves(st.layers)]    # the decode writes in place
+                plain["one_rank"] = {"prefill": np_(logits), "cache": cache,
+                                     "decode": np_(model.decode_step(params, st,
+                                                                     inp["next_tok"])[0])}
                 if dtype == "float32":
-                    r["one_rank"]["generate"] = model.generate(params, batch, T.GEN)[0].tolist()
-        out[f"serve_{sname}_{dtype}"] = r
+                    plain["one_rank"]["generate"] = model.generate(params, batch,
+                                                                   T.GEN)[0].tolist()
+        out[f"serve_{sname}_{dtype}"] = plain
 
 if RANK == 0:
     pickle.dump(out, open("out.pkl", "wb"))
@@ -248,6 +271,59 @@ def test_frontend_serving_under_tp_mode_matches_one_rank(runs, name, mode, kind,
 def test_frontend_greedy_generate_under_tp_mode_matches_one_rank(runs, name, mode):
     r = runs[0][f"serve_{name}_{mode}_float32"]
     assert r["generate"] == runs[0][f"serve_{name}_float32"]["one_rank"]["generate"]
+
+# The grid's f32 prefill caches against the one-rank port's: the encoder's
+# and the projections' partial sums over "model" in another order read up
+# to 2.0e-6 from one rank's without sequence parallelism too; a cache of a
+# rank's block of the memory, or of the wrong positions, reads O(1)
+CACHE_ONE_RANK_TOL = 1e-5
+# (SERVE case, tp_mode) served with sequence parallelism
+SP_SERVE = [(n, "full") for n in SERVE] + SERVE_MODES
+
+
+def _sp_key(name, mode, dtype):
+    return f"serve_{name}_" + ("" if mode == "full" else mode + "_") + f"{dtype}_sp"
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("name,mode", SP_SERVE)
+def test_frontend_sequence_parallel_serving_matches_one_rank(runs, name, mode, kind, dtype):
+    """With ``sp=True`` (seamless's 8 frames and 16 positions, internvl2's
+    8 patches + 16 positions over "model"): prefill and the decode step
+    after it against the port's one-rank model (1e-5 in f32, 3e-2 in
+    bf16), and in f32 within 1e-5 of sp=False's; greedy tokens equal."""
+    r = runs[0][_sp_key(name, mode, dtype)]
+    want = runs[0][f"serve_{name}_{dtype}"]["one_rank"][kind]
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(r[kind], want, rtol=tol, atol=tol)
+    if dtype == "float32":
+        tp = runs[0][f"serve_{name}_float32" if mode == "full" else
+                     f"serve_{name}_{mode}_float32"]
+        np.testing.assert_allclose(r[kind], tp[kind], rtol=1e-5, atol=1e-5)
+        assert r["generate"] == tp["generate"] == \
+            runs[0][f"serve_{name}_float32"]["one_rank"]["generate"]
+
+
+@pytest.mark.parametrize("name,mode", SP_SERVE)
+def test_frontend_sequence_parallel_caches_hold_the_whole_memory(runs, name, mode):
+    """F8's gate: after a prefill with sp=True each rank's caches (seamless's
+    cross-attention K/V: all F frames of the memory, not a rank's block),
+    gathered over their heads, hold the one-rank port's shapes, within
+    1e-6 of sp=False's and ``CACHE_ONE_RANK_TOL`` of the one-rank port's in
+    f32; the prefill's boundary sums are reduce-scattered over the
+    sequence, and no split outlives it."""
+    r = runs[0][_sp_key(name, mode, "float32")]
+    tp = runs[0][f"serve_{name}_" + ("" if mode == "full" else mode + "_") + "float32"]
+    want = runs[0][f"serve_{name}_float32"]["one_rank"]["cache"]
+    assert len(r["cache"]) == len(tp["cache"]) == len(want) > 0
+    for a, b, c in zip(r["cache"], tp["cache"], want):
+        assert a.shape == b.shape == c.shape
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(a, c, rtol=CACHE_ONE_RANK_TOL, atol=CACHE_ONE_RANK_TOL)
+    assert {"sp_gather", "sp_scatter"} <= set(r["roles"]) and "tp_reduce" not in r["roles"]
+    assert r["split_after"] == [False, False]
+
 
 @pytest.mark.parametrize("arch", F6_ARCHS)
 def test_f6_update_bit_identical_on_the_jax_gradient(runs, arch):

@@ -35,7 +35,11 @@ functions, computed meanwhile in processes of their own:
   against the JAX functions (3e-2 in bf16, jitted as the train step is,
   where excess precision flips bf16 routes; 1e-5 in f32), greedy
   ``generate`` tokens equal to the JAX ones in f32; the three in f32 under
-  tp_mode "none" too, against the same JAX functions; and qwen3-moe served a
+  tp_mode "none" too, against the same JAX functions; each also with
+  sequence parallelism (``sp=True``: the prefill's positions over
+  "model"), in f32 within 1e-5 of sp=False, its prefill's caches
+  (recurrent states included) within 1e-6 of sp=False's and 1e-4 of the
+  one-rank port's; and qwen3-moe served a
   batch of 3 on dp 2 (rows replicated over dp) against the port's one-rank
   model; a MoE forward whose rows' split over dp is unknown raises;
 * the bucketed layout, granite bf16, fused C and SR (the update's plain
@@ -91,6 +95,13 @@ SERVE = {"qwen3": (QWEN, {}), "qwen3_cf1": (QWEN, {"capacity_factor": 1.0}), "rw
 # MoE experts and the MLPs whole), held to the JAX references of SERVE's
 # case of the same name (the JAX serving does not depend on the tp_mode)
 SERVE_NONE = ("rwkv6", "jamba", "qwen3")
+# The grid's f32 prefill caches against the one-rank port's: the grid sums
+# the MoE's expert partials, Mamba's x_proj and RWKV's channel-mix over
+# "model" in f32 in another order than one rank's products, and its caches
+# (without sequence parallelism too) read up to 1.69e-5 from one rank's
+# (jamba's last attention layer; qwen3-moe 1.55e-6, rwkv6 9.54e-6); a cache
+# of the wrong positions, heads or memory reads O(1)
+CACHE_ONE_RANK_TOL = 1e-4
 BUCKETED = {"bucketed_C": Strategy.C_COLLAGE_PLUS, "bucketed_SR": Strategy.SR}
 BUCKET_ARCH = ("granite-3-2b", "bfloat16")
 BF16_METRIC_RTOL = 2e-3
@@ -117,6 +128,7 @@ import dataclasses
 from repro_torch.core import bucketing
 from repro_torch.distributed import collectives as coll, sharding as sh
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.dryrun import census_by
 from repro_torch.models import moe as moe_lib, transformer as tf
 from repro_torch.models.model import build_model
 from repro_torch.train import grid as grid_lib, train_loop
@@ -181,44 +193,65 @@ if RANK == 0:
                        **{k: [r[k].tolist() for r in rec] for k in ("idx", "pos", "keep")}}
 out["routing"] = res
 
-# serving
+# serving, without and with sequence parallelism (the prefill's positions
+# over "model"); in f32 the prefill's caches, and the one-rank port's
+def caches_of(model, st):
+    # the prefill's caches, gathered (the specs of the whole caches: made
+    # outside the sharder, whose caches are a rank's)
+    with tf.activation_sharding(None):
+        whole = model.init_decode_state(len(inp["serve_tokens"]), T.CACHE, device="meta")
+    return leaves(sh.gather_tree(st.layers, sh.cache_shardings(whole.layers, g), g))
+
 for sname, (arch, over) in T.SERVE.items():
     for dtype in ("bfloat16", "float32"):
         model = build_model(T._cfg(arch, dtype, over))
         params = inp["params"][arch + dtype]
         pspecs = sh.state_shardings(params, g)
-        shd = sh.make_activation_sharder(g)
-        with torch.no_grad(), tf.activation_sharding(shd):
-            mp = sh.materialize(sh.local_tree(params, pspecs, g), pspecs, g, model.cfg.head_dim_)
-            lb = shd.local_batch({"tokens": inp["serve_tokens"]})
-            r = {}
-            logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
-            r["prefill"] = np_(sh.gather_block(logits, sh.P("data", None, "model"), g))
-            tok = sh.local_block(inp["next_tok"], sh.P("data", None), g)
-            logits, st = model.decode_step(mp, st, tok)
-            r["decode"] = np_(sh.gather_block(logits, sh.P("data", None, "model"), g))
-            if dtype == "float32":
-                gen, _ = model.generate(mp, lb, T.GEN)
-                r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
-        out[f"serve_{sname}_{dtype}"] = r
+        for sp in (False, True):
+            shd = sh.make_activation_sharder(g, sp=sp)
+            with torch.no_grad(), tf.activation_sharding(shd):
+                mp = sh.materialize(sh.local_tree(params, pspecs, g), pspecs, g,
+                                    model.cfg.head_dim_)
+                lb = shd.local_batch({"tokens": inp["serve_tokens"]})
+                r = {}
+                coll.reset_census()
+                logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
+                r["census"] = census_by(coll.CENSUS)
+                r["prefill"] = np_(sh.gather_block(logits, sh.P("data", None, "model"), g))
+                if dtype == "float32":
+                    r["cache"] = caches_of(model, st)
+                tok = sh.local_block(inp["next_tok"], sh.P("data", None), g)
+                logits, st = model.decode_step(mp, st, tok)
+                r["decode"] = np_(sh.gather_block(logits, sh.P("data", None, "model"), g))
+                if dtype == "float32":
+                    gen, _ = model.generate(mp, lb, T.GEN)
+                    r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
+            out[f"serve_{sname}_{dtype}" + ("_sp" if sp else "")] = r
+        if RANK == 0 and dtype == "float32":
+            with torch.no_grad():
+                st = model.prefill(params, {"tokens": inp["serve_tokens"]}, cache_len=T.CACHE)[1]
+            out[f"serve_{sname}_one_rank_cache"] = leaves(st.layers)
 
 for sname in T.SERVE_NONE:
     arch, over = T.SERVE[sname]
     model = build_model(T._cfg(arch, "float32", over))
     params = inp["params"][arch + "float32"]
     pspecs = sh.state_shardings(params, g, tp_mode="none")
-    shd = sh.make_activation_sharder(g)
-    with torch.no_grad(), tf.activation_sharding(shd):
-        mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g, model.cfg)
-        lb = shd.local_batch({"tokens": inp["serve_tokens"]})
-        logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
-        vocab = sh.P("data", None, None)             # the head whole under "none"
-        r = {"prefill": np_(sh.gather_block(logits, vocab, g))}
-        tok = sh.local_block(inp["next_tok"], sh.P("data", None), g)
-        r["decode"] = np_(sh.gather_block(model.decode_step(mp, st, tok)[0], vocab, g))
-        gen, _ = model.generate(mp, lb, T.GEN)
-        r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
-    out[f"serve_{sname}_none"] = r
+    for sp in (False, True):
+        shd = sh.make_activation_sharder(g, sp=sp)
+        with torch.no_grad(), tf.activation_sharding(shd):
+            mp = sh.materialize_serving(sh.local_tree(params, pspecs, g), pspecs, g, model.cfg)
+            lb = shd.local_batch({"tokens": inp["serve_tokens"]})
+            coll.reset_census()
+            logits, st = model.prefill(mp, lb, cache_len=T.CACHE)
+            vocab = sh.P("data", None, None)             # the head whole under "none"
+            r = {"prefill": np_(sh.gather_block(logits, vocab, g)),
+                 "census": census_by(coll.CENSUS), "cache": caches_of(model, st)}
+            tok = sh.local_block(inp["next_tok"], sh.P("data", None), g)
+            r["decode"] = np_(sh.gather_block(model.decode_step(mp, st, tok)[0], vocab, g))
+            gen, _ = model.generate(mp, lb, T.GEN)
+            r["generate"] = sh.gather_block(gen, sh.P("data", None), g).tolist()
+        out[f"serve_{sname}_none" + ("_sp" if sp else "")] = r
 
 # qwen3-moe (capacity factor 1) served a batch of 3: the rows do not divide
 # dp 2, so they are replicated and each dp rank routes them as one rank does
@@ -494,6 +527,46 @@ def test_serving_under_tp_mode_none_matches(runs, name, kind):
         assert r == want
     else:
         np.testing.assert_allclose(r, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("name", list(SERVE))
+def test_sequence_parallel_serving_logits_match(runs, name, kind, dtype):
+    """Serving with ``sp=True`` (the prefill's 16 positions split over
+    "model"; the MoE's capacity over the global tokens, the recurrent
+    mixers on the gathered sequence) against the same JAX functions as
+    without it."""
+    got, refs = runs
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got[f"serve_{name}_{dtype}_sp"][kind],
+                               refs[f"serve_{name}_{dtype}"][kind], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name,mode", [(n, "full") for n in SERVE] + [(n, "none")
+                                                                       for n in SERVE_NONE])
+def test_sequence_parallel_serving_equals_tensor_parallel(runs, name, mode):
+    """f32 under sp=True: logits within 1e-5 of sp=False's, greedy tokens
+    equal to the JAX ones; the prefill's caches (recurrent states
+    included) within 1e-6 of sp=False's and within ``CACHE_ONE_RANK_TOL``
+    of the one-rank port's; the prefill's boundary
+    sums reduce-scattered over the sequence (``sp_scatter``) where
+    ``tp_reduce`` summed them (what remains of it is the sums inside
+    Mamba's ``x_proj`` and RWKV's channel-mix, over the gathered
+    sequence)."""
+    got, refs = runs
+    key = f"serve_{name}_" + ("float32" if mode == "full" else "none")
+    a, b = got[key], got[key + "_sp"]
+    for kind in ("prefill", "decode"):
+        np.testing.assert_allclose(b[kind], a[kind], rtol=1e-5, atol=1e-5, err_msg=kind)
+    assert b["generate"] == a["generate"] == refs[f"serve_{name}_float32"]["generate"]
+    want = got[f"serve_{name}_one_rank_cache"]
+    assert len(a["cache"]) == len(b["cache"]) == len(want) > 0
+    for x, y, z in zip(a["cache"], b["cache"], want):
+        np.testing.assert_allclose(y, x, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(y, z, rtol=CACHE_ONE_RANK_TOL, atol=CACHE_ONE_RANK_TOL)
+    assert "sp_scatter" in b["census"] and "sp_scatter" not in a["census"]
+    assert b["census"].get("tp_reduce", 0) < a["census"]["tp_reduce"], (a["census"], b["census"])
 
 
 def test_moe_serving_with_replicated_rows(runs):
